@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`dcfa_yolo_tpu_torch`) on one NVIDIA
 Hopper GPU: builds the hand-written kernels from `dcfa_yolo_tpu_torch/csrc/`,
-holds each against its plain PyTorch version at the serving path's shapes,
-times it, then serves the phi='n' 640² bf16 model through `YOLOPredictor`
-and checks that the path went through both kernels and agrees with the
-all-plain path.
+holds each against its plain PyTorch version at its path's shapes, times it,
+then drives the two paths of the port at phi='n' 640² bf16: serving through
+`YOLOPredictor` (kernels A and B) and training through `Trainer.train_step`
+(kernel C), and checks that each path went through its kernels and agrees
+with its all-plain version.
 
     python3 chip_smoke.py
 
@@ -16,6 +17,7 @@ off throughout: the float32 plain versions are compared in full float32.
 
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import json
 import subprocess
@@ -311,6 +313,162 @@ def phase_serve(dev):
     return launches, nms_t
 
 
+def phase_train_stem(dev):
+    """Kernel C vs stem_train_plain at the train path's shape (b16 640² bf16,
+    one modality), on seeded NHWC images in [0, 1]; then the differentiable
+    `fused_train_stem` (γ of mixed signs, so the min pool is used) against
+    the plain decomposition `reference_stem`."""
+    import torch.nn.functional as F
+    from dcfa_yolo_tpu_torch.ops import cuda_stem_train as cst
+
+    b, h, w = 16, 640, 640
+    rng = np.random.default_rng(SEED + 30)
+    x = torch.from_numpy(rng.random((b, h, w, 3), np.float32)).to(dev, torch.bfloat16)
+    k32 = torch.from_numpy((rng.standard_normal((16, 3, 3, 3)) * 0.3).astype(np.float32)).to(dev)
+    k = k32.to(torch.bfloat16)
+    gamma = torch.from_numpy((rng.standard_normal(16)).astype(np.float32)).to(dev)
+    beta = torch.from_numpy((rng.standard_normal(16) * 0.1).astype(np.float32)).to(dev)
+    check(bool((gamma < 0).any() and (gamma > 0).any()), "γ needs both signs")
+
+    pmax, pmin, sums = cst.stem_train(x, k)
+    torch.cuda.synchronize()
+    rmax, rmin, rsums = cst.stem_train_plain(x, k)
+    res = {}
+    for name, o, r in (("pmax", pmax, rmax), ("pmin", pmin, rmin)):
+        o, r = o.float(), r.float()
+        err = (o - r).abs()
+        frac = (o == r).float().mean().item()
+        check(bool(torch.isfinite(o).all()), f"train stem {name} not finite")
+        check(bool(torch.all(err <= 0.03 + 0.02 * r.abs())) and frac >= 0.999,
+              f"train stem {name}: {frac:.6f} bit-equal (need 0.999), max err "
+              f"{err.max().item():.4g} (atol 0.03, rtol 0.02)")
+        res[name] = (err.max().item(), frac)
+    # the f32 sums run in another order (per-CTA partials, then a fixed
+    # reduction over CTAs): relative 1e-3 of each channel's magnitude
+    sum_err = ((sums - rsums).abs() / rsums.abs().clamp_min(1e-3 * rsums.abs().max())).max().item()
+    check(sum_err <= 1e-3, f"train stem sums: relative error {sum_err:.3g} > 1e-3")
+
+    y, mean, var = cst.fused_train_stem(x, k32, gamma, beta, 1e-5)
+    y_ref, mean_ref, var_ref = cst.reference_stem(x, k32, gamma, beta, 1e-5)
+    yd = (y.float() - y_ref.float()).abs()
+    y_frac = (yd == 0).float().mean().item()
+    check(bool(torch.all(yd <= 0.03 + 0.02 * y_ref.float().abs())) and y_frac >= 0.99,
+          f"fused_train_stem vs reference_stem: {y_frac:.6f} bit-equal (need 0.99), "
+          f"max err {yd.max().item():.4g}")
+    check(bool(torch.allclose(mean, mean_ref, rtol=1e-3, atol=1e-4)
+               and torch.allclose(var, var_ref, rtol=1e-3, atol=1e-4)),
+          "fused_train_stem batch moments disagree with reference_stem")
+
+    xc = x.permute(0, 3, 1, 2)  # NCHW view, channels_last strides
+
+    def library():
+        c = F.conv2d(xc, k, padding=1)
+        cf = c.float()
+        return (F.max_pool2d(c, 3, 2, 1), -F.max_pool2d(-c, 3, 2, 1),
+                cf.sum((0, 2, 3)), (cf * cf).sum((0, 2, 3)))
+
+    # what the function must move: the input, both pools, the weights and
+    # the (16, 2) float32 sums; the kernel's per-CTA partials are its own
+    nbytes = x.numel() * 2 + 2 * pmax.numel() * 2 + k.numel() * 2 + sums.numel() * 4
+    bound_ms, bound_by = bound(nbytes, 2 * b * h * w * 16 * 27, H100_BF16_FLOPS)
+    t = dict(max_abs_err=max(res["pmax"][0], res["pmin"][0]),
+             ms=cuda_ms(lambda: cst.stem_train(x, k), 20),
+             plain_ms=cuda_ms(lambda: cst.stem_train_plain(x, k), 5),
+             library_ms=cuda_ms(library, 20), bound_ms=bound_ms, bound_by=bound_by)
+    print(f"[train_stem] b{b} 640² bf16: pmax bit-equal {res['pmax'][1]:.6f}, pmin "
+          f"{res['pmin'][1]:.6f}, max_abs_err {t['max_abs_err']:.4g}, sums rel err "
+          f"{sum_err:.3g} (tol 1e-3) | fused y vs reference {y_frac:.6f} bit-equal | "
+          f"kernel_ms {t['ms']:.4f} plain_ms {t['plain_ms']:.4f} library_ms(cuDNN "
+          f"conv+max/min pools+sums) {t['library_ms']:.4f} bound_ms {bound_ms:.5f} "
+          f"({bound_by}, {nbytes / 1e6:.1f} MB)")
+    return t
+
+
+def phase_train(dev):
+    """The train path: Trainer at phi='n' 640² bf16, b16 SGD-nesterov, the
+    reference init (seed 0), 10 steps at a fixed LR on one batch, with the
+    launch counts read around exactly those steps; then one step of the
+    'kernel' graph against one of the 'plain' graph from the same weights."""
+    from dcfa_yolo_tpu_torch.config import ModelConfig, TrainConfig
+    from dcfa_yolo_tpu_torch.models.yolo import init_model
+    from dcfa_yolo_tpu_torch.ops import cuda_nms, cuda_stem, cuda_stem_train
+    from dcfa_yolo_tpu_torch.profile_train import step_stages, synthetic_batch
+    from dcfa_yolo_tpu_torch.train.trainer import Trainer
+
+    tc = TrainConfig()
+    b, steps = tc.batch_size, 10
+    lr = tc.scaled_lrs()[0]
+    cfg = ModelConfig(num_classes=1, phi="n", input_shape=(640, 640),
+                      compute_dtype="bfloat16")
+    tr = Trainer(init_model(cfg, SEED, dev, train=True), tc, device=dev)
+    print(f"[train] train_stem_backend {cfg.train_stem_backend!r} resolves to "
+          f"{tr.train_stem!r}")
+    check(tr.train_stem == "kernel", "the train stem resolved to the plain graph")
+    batch = tr.put_batch(*synthetic_batch(b, cfg.input_shape, tc.max_boxes, SEED + 40))
+    stem_bn = tr.model.backbone_rgb.stem.bn
+    bn0 = (stem_bn.running_mean.clone(), stem_bn.running_var.clone())
+
+    cuda_stem.LAUNCHES = cuda_nms.LAUNCHES = cuda_stem_train.LAUNCHES = 0
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        lb = tr.train_step(batch, lr)
+        losses.append(float(lb.total))  # synchronises
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    launches = {"stem_eval": cuda_stem.LAUNCHES, "nms_suppress": cuda_nms.LAUNCHES,
+                "stem_train": cuda_stem_train.LAUNCHES}
+    med = float(np.median(step_ms))
+    print(f"[train] b{b} 640² bf16 SGD lr {lr:g}, {steps} steps on one batch: launches "
+          f"{launches}, loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    print(f"[train] ms/step median {med:.2f} (host clock, ends in a synchronise; "
+          f"steps {', '.join(f'{t:.1f}' for t in step_ms)}), images/s {b * 1e3 / med:.1f}")
+    check(launches["stem_train"] == 2 * steps,
+          f"expected {2 * steps} train-stem launches, got {launches}")
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(not torch.equal(stem_bn.running_mean, bn0[0])
+          and not torch.equal(stem_bn.running_var, bn0[1]),
+          "stem BN running statistics did not move")
+    check(tr.ema.updates == steps, f"EMA counter {tr.ema.updates}, expected {steps}")
+    ev = tr.eval_step(batch)
+    check(all(bool(torch.isfinite(t)) for t in ev), "eval_step on the EMA weights not finite")
+    print(f"[train] eval_step on the EMA weights: loss {float(ev.total):.4f} "
+          f"(box {float(ev.box):.4f}, cls {float(ev.cls):.4f}, dfl {float(ev.dfl):.4f})")
+
+    # one step split into its stages, a synchronise after each
+    stages = step_stages(tr, batch, lr)
+    print("[train] one step by stage (ms): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in stages.items()) + f", sum {sum(stages.values()):.2f}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[train] peak device memory so far {peak:.2f} GiB")
+
+    # the kernel graph against the plain graph, one step from the same weights
+    out = {}
+    for backend in ("kernel", "plain"):
+        m = init_model(dataclasses.replace(cfg, train_stem_backend=backend), SEED, dev,
+                       train=True)
+        t = Trainer(m, tc, device=dev)
+        check(t.train_stem == backend, f"{backend!r} resolved to {t.train_stem!r}")
+        lb = t.loss(t.forward(batch), batch)
+        grads = t.backward(lb.total)
+        names = [n for n, _ in t._named]
+        out[backend] = (float(lb.total.detach()),
+                        grads[names.index("backbone_rgb.stem.conv.weight")].flatten(),
+                        grads[names.index("backbone_nir.stem.conv.weight")].flatten())
+        del t, m, grads
+    loss_rel = abs(out["kernel"][0] - out["plain"][0]) / abs(out["plain"][0])
+    cos = [float(torch.nn.functional.cosine_similarity(out["kernel"][i], out["plain"][i], 0))
+           for i in (1, 2)]
+    print(f"[train] kernel vs plain stem graph, one step from the same weights: loss "
+          f"{out['kernel'][0]:.5f} vs {out['plain'][0]:.5f} (rel {loss_rel:.3g}, tol "
+          f"0.02), stem conv-kernel gradient cosine rgb {cos[0]:.6f} nir {cos[1]:.6f} "
+          f"(tol 0.99)")
+    check(loss_rel <= 0.02 and min(cos) >= 0.99,
+          "kernel stem graph disagrees with the plain graph")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA "
@@ -335,6 +493,8 @@ def main() -> int:
         stem_t = phase_stem(model, dev)
         phase_nms(dev)
         launches, nms_t = phase_serve(dev)
+        train_stem_t = phase_train_stem(dev)
+        launches["stem_train"] = phase_train(dev)["stem_train"]
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -343,7 +503,9 @@ def main() -> int:
             ("stem_eval", "dcfa_yolo_tpu_torch/csrc/stem_eval.cu",
              "dcfa_yolo_tpu/ops/pallas_stem.py:200", stem_t),
             ("nms_suppress", "dcfa_yolo_tpu_torch/csrc/nms_suppress.cu",
-             "dcfa_yolo_tpu/ops/pallas_nms.py:40", nms_t)):
+             "dcfa_yolo_tpu/ops/pallas_nms.py:40", nms_t),
+            ("stem_train", "dcfa_yolo_tpu_torch/csrc/stem_train.cu",
+             "dcfa_yolo_tpu/ops/pallas_stem_train.py:82", train_stem_t)):
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=rep,
             launches=launches[name], max_abs_err=t["max_abs_err"], ms=t["ms"],

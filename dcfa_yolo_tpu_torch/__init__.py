@@ -6,7 +6,9 @@ keeps its own copies of what it needs.  Public functions keep the JAX
 layouts (NHWC images and feature maps, anchors-first `(B, A, C)` outputs), so
 the tests compare like with like.  Entry points run on the card unless the
 caller passes `device="cpu"`; the hand-written kernels (`ops/cuda_stem.py`,
-`ops/cuda_nms.py`) are built from `csrc/` at first use.
+`ops/cuda_nms.py`, `ops/cuda_stem_train.py`) are built from `csrc/` at
+first use.  Two paths are ported: serving (`infer/`) and the single-device
+train step (`train/`).
 """
 
 __version__ = "0.1.0"

@@ -17,10 +17,11 @@ class Backbone(nn.Module):
     """stem → dark2..dark5; each dark = s2 ConvBnAct + s1 ShuffleNetV2 unit;
     dark5 appends SPPF-CBAM.  Emits feats at /8, /16, /32 (NCHW)."""
 
-    def __init__(self, base_channels: int, deep_channels: int):
+    def __init__(self, base_channels: int, deep_channels: int,
+                 stem_backend: str = "auto"):
         super().__init__()
         bc, deep = base_channels, deep_channels
-        self.stem = ConvMaxpool(3, bc)
+        self.stem = ConvMaxpool(3, bc, stem_backend)
         self.dark2_conv = ConvBnAct(bc, bc * 2, 3, 2)
         self.dark2_shuffle = ShuffleNetV2Block(bc * 2)
         self.dark3_conv = ConvBnAct(bc * 2, bc * 4, 3, 2)

@@ -1,4 +1,5 @@
-"""Model blocks of the port (`dcfa_yolo_tpu/models/blocks.py`), eval graph.
+"""Model blocks of the port (`dcfa_yolo_tpu/models/blocks.py`), train graph
+weights; `nn.Module.train()` / `eval()` pick train- or eval-mode BatchNorm.
 
 Tensors are NCHW inside the model.  Submodule names follow the flax scopes
 of the JAX package so that `models/convert.py` maps the flax tree by
@@ -14,7 +15,9 @@ import torch
 from torch import nn
 
 from dcfa_yolo_tpu_torch.ops.conv import Conv, ConvBnAct, silu
-from dcfa_yolo_tpu_torch.ops.norm import BatchNorm
+from dcfa_yolo_tpu_torch.ops.cuda_stem_train import (fused_train_stem,
+                                                     resolve_train_stem)
+from dcfa_yolo_tpu_torch.ops.norm import BatchNorm, update_running
 from dcfa_yolo_tpu_torch.ops.pool import (global_avg_pool, global_max_pool,
                                           max_pool_same)
 
@@ -64,15 +67,32 @@ class CBAM(nn.Module):
 
 class ConvMaxpool(nn.Module):
     """Stem: 3x3 s1 conv + default-BN + ReLU, then 3x3 s2 maxpool
-    (`nets/yolo_mul.py:104-115`), eval XLA form (`blocks.py:129-134`).
-    The serving kernel path replaces it with `ops/cuda_stem.py`."""
+    (`nets/yolo_mul.py:104-115`, `blocks.py:103-168`).
 
-    def __init__(self, c_in: int, c_out: int):
+    Eval mode and the 'plain' train graph run the ops one by one; the
+    serving kernel path replaces the eval stem with `ops/cuda_stem.py`.  The
+    'kernel' train graph runs `ops/cuda_stem_train.py::fused_train_stem`
+    (kernel C) and updates the running statistics as `blocks.py:149-158`
+    does: momentum 0.1, Bessel with n = B·H·W at full resolution.  Both
+    graphs hold the same parameters and buffers.  `backend` is
+    `ModelConfig.train_stem_backend`, resolved per call from the input."""
+
+    def __init__(self, c_in: int, c_out: int, backend: str = "auto"):
         super().__init__()
+        self.backend = backend
         self.conv = Conv(c_in, c_out, 3, 1)
         self.bn = BatchNorm(c_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and resolve_train_stem(
+                self.backend, self.conv.out_channels, x.shape[2:4], x.dtype,
+                x.device) == "kernel":
+            y, mean, var = fused_train_stem(
+                x.permute(0, 2, 3, 1), self.conv.weight, self.bn.weight,
+                self.bn.bias, self.bn.eps)
+            update_running(self.bn, mean.detach(), var.detach(),
+                           x.shape[0] * x.shape[2] * x.shape[3])
+            return y.permute(0, 3, 1, 2)
         return max_pool_same(torch.relu(self.bn(self.conv(x))), 3, 2)
 
 
@@ -188,17 +208,20 @@ class RepGhostBottleneck(nn.Module):
 
 class C2fRepGhost(nn.Module):
     """CSP block over RepGhost bottlenecks (`nets/repghost.py:308-320`).  Its
-    1x1 convs use the default-BN flavour (eps 1e-5, `nets/repghost.py:291-305`)."""
+    1x1 convs use the default-BN flavour (eps 1e-5, momentum 0.1,
+    `nets/repghost.py:291-305`)."""
 
     def __init__(self, c_in: int, c_out: int, n: int = 1,
                  expansion: float = 0.5):
         super().__init__()
         self.c = int(c_out * expansion)
         self.n = n
-        self.cv1 = ConvBnAct(c_in, 2 * self.c, 1, 1, bn_eps=1e-5)
+        self.cv1 = ConvBnAct(c_in, 2 * self.c, 1, 1, bn_eps=1e-5,
+                             bn_momentum=0.1)
         for i in range(n):
             self.add_module(f"m{i}", RepGhostBottleneck(self.c))
-        self.cv2 = ConvBnAct((2 + n) * self.c, c_out, 1, 1, bn_eps=1e-5)
+        self.cv2 = ConvBnAct((2 + n) * self.c, c_out, 1, 1, bn_eps=1e-5,
+                             bn_momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = list(self.cv1(x).split(self.c, dim=1))

@@ -22,6 +22,7 @@ from dcfa_yolo_tpu_torch.models.blocks import (CBAM, C2fRepGhost, ConcatBiFPN,
                                                dfl_decode)
 from dcfa_yolo_tpu_torch.ops.boxes import make_anchors_np
 from dcfa_yolo_tpu_torch.ops.conv import Conv, ConvBnAct
+from dcfa_yolo_tpu_torch.ops.cuda_stem_train import resolve_train_stem
 from dcfa_yolo_tpu_torch.ops.resize import resize_bilinear_align_corners
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -43,15 +44,16 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 
 class DCFAYolo(nn.Module):
     """Dual-backbone (RGB+NIR) detector with CBAM cross-feature fusion,
-    RepGhost PAN neck and YOLOv8 decoupled DFL head (train-graph weights,
-    eval forward)."""
+    RepGhost PAN neck and YOLOv8 decoupled DFL head (train-graph weights).
+    `train()` / `eval()` switch every BatchNorm between batch and running
+    statistics; `train_feats` is the train forward."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
         bc, deep, depth = cfg.base_channels, cfg.deep_channels, cfg.base_depth
-        self.backbone_rgb = Backbone(bc, deep)
-        self.backbone_nir = Backbone(bc, deep)
+        self.backbone_rgb = Backbone(bc, deep, cfg.train_stem_backend)
+        self.backbone_nir = Backbone(bc, deep, cfg.train_stem_backend)
         for mod in ("rgb", "nir"):
             for i, c in enumerate((bc * 4, bc * 8, deep), start=1):
                 self.add_module(f"cbam_{mod}_feat{i}", CBAM(c))
@@ -76,12 +78,10 @@ class DCFAYolo(nn.Module):
             self.add_module(f"cv3_{i}_1", ConvBnAct(c3, c3, 3))
             self.add_module(f"cv3_{i}_2", Conv(c3, cfg.num_classes, 1, bias=True))
 
-    def forward(self, rgb: Optional[torch.Tensor], nir: Optional[torch.Tensor],
-                stem_outs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                ) -> YoloOutputs:
-        """rgb/nir: (B, H, W, 3) NHWC, /255-normalized; None when
-        `stem_outs` (two (B, H/2, W/2, c) NHWC maps from the fused stem
-        kernel) replaces the stems."""
+    def _head(self, rgb: Optional[torch.Tensor], nir: Optional[torch.Tensor],
+              stem_outs: Optional[Tuple[torch.Tensor, torch.Tensor]]):
+        """Backbones, fusion, neck and head → (per-level box and cls maps,
+        NCHW, in the compute dtype; the input's (H, W))."""
         cfg = self.cfg
         dtype = _DTYPES[cfg.compute_dtype]
         if stem_outs is not None:
@@ -112,26 +112,56 @@ class DCFAYolo(nn.Module):
             self.bi_fpn((self.down_sample2(p4), f3r, f3n)))
 
         # decoupled head (`nets/yolo_mul.py:387-391,452-453`)
-        b = p3.shape[0]
-        feats, boxes_l, clses_l = [], [], []
+        boxes, clses = [], []
         for i, p in enumerate((p3, p4, p5)):
             box = getattr(self, f"cv2_{i}_0")(p)
-            box = getattr(self, f"cv2_{i}_2")(getattr(self, f"cv2_{i}_1")(box))
+            boxes.append(getattr(self, f"cv2_{i}_2")(getattr(self, f"cv2_{i}_1")(box)))
             cls = getattr(self, f"cv3_{i}_0")(p)
-            cls = getattr(self, f"cv3_{i}_2")(getattr(self, f"cv3_{i}_1")(cls))
-            feats.append(torch.cat([box, cls], dim=1).permute(0, 2, 3, 1))
-            boxes_l.append(box.permute(0, 2, 3, 1).reshape(b, -1, 4 * cfg.reg_max))
-            clses_l.append(cls.permute(0, 2, 3, 1).reshape(b, -1, cfg.num_classes))
+            clses.append(getattr(self, f"cv3_{i}_2")(getattr(self, f"cv3_{i}_1")(cls)))
+        return boxes, clses, input_hw
+
+    def train_stem_route(self) -> str:
+        """The train-mode stem graph this model runs where its parameters
+        lie, for inputs of `cfg.input_shape`: 'kernel' (kernel C) or
+        'plain', as `ModelConfig.train_stem_backend` resolves."""
+        stem = self.backbone_rgb.stem
+        return resolve_train_stem(stem.backend, stem.conv.out_channels,
+                                  self.cfg.input_shape,
+                                  _DTYPES[self.cfg.compute_dtype],
+                                  stem.conv.weight.device)
+
+    def train_feats(self, rgb: torch.Tensor, nir: torch.Tensor
+                    ) -> Tuple[torch.Tensor, ...]:
+        """The train forward: raw per-level maps `concat([box, cls])`, NHWC
+        (B, h, w, 4·reg_max + nc) in the compute dtype, what the loss reads
+        (`trainer.py:87-90`).  rgb/nir: (B, H, W, 3) NHWC in [0, 1]."""
+        boxes, clses, _ = self._head(rgb, nir, None)
+        return tuple(torch.cat([b, c], dim=1).permute(0, 2, 3, 1)
+                     for b, c in zip(boxes, clses))
+
+    def forward(self, rgb: Optional[torch.Tensor], nir: Optional[torch.Tensor],
+                stem_outs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> YoloOutputs:
+        """rgb/nir: (B, H, W, 3) NHWC, /255-normalized; None when
+        `stem_outs` (two (B, H/2, W/2, c) NHWC maps from the fused stem
+        kernel) replaces the stems."""
+        cfg = self.cfg
+        boxes, clses, input_hw = self._head(rgb, nir, stem_outs)
+        b = boxes[0].shape[0]
+        feats = tuple(torch.cat([bx, c], dim=1).permute(0, 2, 3, 1)
+                      for bx, c in zip(boxes, clses))
         # levels flatten row-major (y, x), the reference's `.view(b, no, -1)`
         # order; box/cls go to float32 before the DFL
-        box_logits = torch.cat(boxes_l, dim=1).float()
-        cls_logits = torch.cat(clses_l, dim=1).float()
+        box_logits = torch.cat([bx.permute(0, 2, 3, 1).reshape(b, -1, 4 * cfg.reg_max)
+                                for bx in boxes], dim=1).float()
+        cls_logits = torch.cat([c.permute(0, 2, 3, 1).reshape(b, -1, cfg.num_classes)
+                                for c in clses], dim=1).float()
         anchors_np, strides_np = make_anchors_np(tuple(input_hw), cfg.strides)
         dev = box_logits.device
         return YoloOutputs(
             dbox=dfl_decode(box_logits, cfg.reg_max),
             cls=cls_logits,
-            feats=tuple(feats),
+            feats=feats,
             anchors=torch.from_numpy(anchors_np).to(dev),
             strides=torch.from_numpy(strides_np).to(dev),
         )
@@ -158,11 +188,24 @@ def _init_value(name: str, shape, seed: int) -> np.ndarray:
     return v.astype(np.float32)
 
 
-def init_model(cfg: ModelConfig, seed: int = 0, device="cuda") -> DCFAYolo:
-    """A DCFAYolo in eval mode on `device` with deterministic weights made
-    from `seed` with numpy (no JAX needed)."""
+def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
+               train: bool = False) -> DCFAYolo:
+    """A DCFAYolo on `device` with deterministic weights made from `seed`
+    with numpy (no JAX needed).
+
+    train=False: eval mode, with the lively synthetic weights of
+    `_init_value`.  train=True: train mode, at the start of training: the
+    flax initial state (BN γ=1, β=0, running mean 0 and var 1, BiFPN w=1)
+    with the reference's `weights_init` drawn over it
+    (`train/init_weights.py::reference_weights_init`), bit-identical to the
+    JAX package's for the same seed."""
     dev = resolve_device(device)
     model = DCFAYolo(cfg)
+    if train:
+        from dcfa_yolo_tpu_torch.train.init_weights import reference_weights_init
+
+        reference_weights_init(model, seed)
+        return model.to(dev).train()
     sd = {k: torch.from_numpy(_init_value(k, tuple(v.shape), seed))
           for k, v in model.state_dict().items()}
     model.load_state_dict(sd, strict=True)

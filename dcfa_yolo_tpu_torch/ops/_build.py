@@ -30,6 +30,7 @@ _COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 SOURCES = {
     "stem_eval.cu": [],
     "nms_suppress.cu": ["-fmad=false"],
+    "stem_train.cu": [],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -90,6 +91,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.stem_eval_bf16.restype = i
     lib.nms_suppress.argtypes = [p, p, p, i, i, f, p]
     lib.nms_suppress.restype = i
+    lib.stem_train_num_ctas.argtypes = [i, i, i]
+    lib.stem_train_num_ctas.restype = i
+    lib.stem_train_bf16.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.stem_train_bf16.restype = i
     lib.dcfa_error_string.argtypes = [i]
     lib.dcfa_error_string.restype = ctypes.c_char_p
 

@@ -1,9 +1,10 @@
 """Convolution blocks of the port (`dcfa_yolo_tpu/ops/conv.py:27-176`).
 
 The reference model mixes two BatchNorm flavours: its `Conv` blocks use
-eps=1e-3 (`nets/yolo_mul.py:197`), everything else (ShuffleNet, RepGhost,
-C2fRepGhost's 1x1 convs, `nets/repghost.py:298`) uses eps=1e-5.  Only the
-eval path is ported, so the momenta do not appear.
+eps=1e-3 and momentum 0.03 (`nets/yolo_mul.py:197`), everything else (the
+stem, ShuffleNet, RepGhost, C2fRepGhost's 1x1 convs, `nets/repghost.py:298`)
+uses the torch defaults eps=1e-5 and momentum 0.1.  Momentum is torch's:
+the weight of the new batch statistic in the running update.
 
 Parameters stay float32; each conv casts its weights to the activation dtype
 when it runs, as flax's `nn.Conv(dtype=...)` does.
@@ -51,15 +52,15 @@ class Conv(nn.Conv2d):
 class ConvBnAct(nn.Module):
     """The reference's `Conv` block: bias-free conv + BN + SiLU.
 
-    `bn_eps` defaults to the `nets/yolo_mul.py:197` flavour (1e-3);
-    C2fRepGhost passes the torch default 1e-5.
+    `bn_eps`/`bn_momentum` default to the `nets/yolo_mul.py:197` flavour
+    (1e-3, 0.03); C2fRepGhost passes the torch defaults (1e-5, 0.1).
     """
 
     def __init__(self, c_in: int, c_out: int, k: int = 1, s: int = 1,
-                 bn_eps: float = 1e-3):
+                 bn_eps: float = 1e-3, bn_momentum: float = 0.03):
         super().__init__()
         self.conv = Conv(c_in, c_out, k, s)
-        self.bn = BatchNorm(c_out, eps=bn_eps)
+        self.bn = BatchNorm(c_out, eps=bn_eps, momentum=bn_momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return silu(self.bn(self.conv(x)))

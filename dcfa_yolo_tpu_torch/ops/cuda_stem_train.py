@@ -1,0 +1,180 @@
+"""Fused train-mode stem: conv3x3 s1 (3→16) + train-BatchNorm + ReLU +
+maxpool3x3 s2, with the full-resolution pass in one hand-written CUDA kernel
+(`csrc/stem_train.cu`, kernel C).
+
+Port of `dcfa_yolo_tpu/ops/pallas_stem_train.py` (`fused_train_stem`).  The
+kernel reads the NHWC input once and emits max pool, min pool and the
+per-channel Σĉ, Σĉ² of the conv output ĉ rounded to the compute dtype.  The
+BN affine a·ĉ + b commutes with the pools up to the sign of a, so BN and
+ReLU run at pool resolution on the max or the min pool by sign(γ)
+(`_fused_fwd_impl`, `pallas_stem_train.py:296-325`).
+
+`stem_train` launches the kernel for a CUDA tensor and uses the plain
+version `stem_train_plain` only for a CPU tensor; `LAUNCHES` counts kernel
+launches.  `fused_train_stem` is the differentiable function; its backward
+differentiates the plain decomposition `reference_stem`, as the JAX VJP does
+(`pallas_stem_train.py:328-337`): the TPU kernel has no backward kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from dcfa_yolo_tpu_torch.ops import _build
+from dcfa_yolo_tpu_torch.ops.norm import batch_moments
+
+STEM_CO = 16  # the kernel is specialised to phi='n''s 16 stem channels
+LAUNCHES = 0
+
+
+def resolve_train_stem(backend: str, c_out: int, hw: Tuple[int, int],
+                       dtype: torch.dtype, device: torch.device) -> str:
+    """'kernel' or 'plain' for the train-mode stem.
+
+    'auto' picks the kernel on a CUDA sm_90 device wherever it applies: 16
+    stem channels, even H and W and bf16 compute (the kernel is bf16 only;
+    in float32 the plain graph keeps float32, as the eval resolver of
+    `infer/pipeline.py` does).  An explicit 'kernel' that cannot be met
+    raises; on a CPU tensor the kernel's wrapper takes its plain version.
+    """
+    shape_ok = c_out == STEM_CO and hw[0] % 2 == 0 and hw[1] % 2 == 0
+    on_card = (device.type == "cuda"
+               and torch.cuda.get_device_capability(device) == (9, 0))
+    if backend == "auto":
+        return ("kernel" if shape_ok and on_card and dtype == torch.bfloat16
+                else "plain")
+    if backend == "plain":
+        return "plain"
+    if backend != "kernel":
+        raise ValueError(f"unknown train stem backend {backend!r}")
+    if not shape_ok:
+        raise ValueError(f"the train stem kernel needs {STEM_CO} channels and "
+                         f"an even input shape, got {c_out} and {tuple(hw)}")
+    if device.type == "cuda" and not (on_card and dtype == torch.bfloat16):
+        raise ValueError("the train stem kernel needs an sm_90 card and bf16 "
+                         f"compute, got {device} and {dtype}")
+    return "kernel"
+
+
+def stem_train_plain(x: torch.Tensor, weight: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel.  x (B, H, W, 3) NHWC, weight
+    (16, 3, 3, 3) in x's dtype → (pmax, pmin (B, H/2, W/2, 16) in x's dtype,
+    sums (16, 2) float32 [Σĉ, Σĉ²]).  The conv runs in float32 over the
+    operands (bf16 products are exact in float32) and ĉ is rounded to x's
+    dtype before the pools and the sums.  On the card it needs TF32 off."""
+    c = F.conv2d(x.permute(0, 3, 1, 2).float(), weight.float(), padding=1)
+    c = c.to(x.dtype)
+    pmax = F.max_pool2d(c, 3, 2, 1)
+    pmin = -F.max_pool2d(-c, 3, 2, 1)
+    cf = c.float()
+    sums = torch.stack([cf.sum(dim=(0, 2, 3)), (cf * cf).sum(dim=(0, 2, 3))], 1)
+    return (pmax.permute(0, 2, 3, 1).contiguous(),
+            pmin.permute(0, 2, 3, 1).contiguous(), sums)
+
+
+def stem_train(x: torch.Tensor, weight: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel C on the NHWC input: (pmax, pmin, sums) as `stem_train_plain`
+    returns them.  Launches the CUDA kernel for a CUDA tensor; a CPU tensor
+    takes `stem_train_plain`.  The per-CTA partial sums are reduced here in
+    a fixed order."""
+    global LAUNCHES
+    if x.dim() != 4 or x.shape[3] != 3:
+        raise ValueError(f"x must be (B, H, W, 3), got {tuple(x.shape)}")
+    b, h, w, _ = x.shape
+    if h <= 0 or w <= 0 or h % 2 or w % 2:
+        raise ValueError(f"the train stem needs even H and W, got H={h}, W={w}")
+    if tuple(weight.shape) != (STEM_CO, 3, 3, 3):
+        raise ValueError(f"weight must be ({STEM_CO}, 3, 3, 3), got "
+                         f"{tuple(weight.shape)}")
+    if x.device.type == "cpu":
+        return stem_train_plain(x, weight)
+    if x.device.type != "cuda":
+        raise ValueError(f"stem_train runs on CUDA or CPU, got {x.device}")
+    for name, t in (("x", x), ("weight", weight)):
+        if (t.device != x.device or t.dtype != torch.bfloat16
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous bf16 tensor on "
+                             f"{x.device}, got {t.dtype} on {t.device}")
+    pmax = torch.empty((b, h // 2, w // 2, STEM_CO), dtype=torch.bfloat16,
+                       device=x.device)
+    pmin = torch.empty_like(pmax)
+    if b == 0:
+        return pmax, pmin, torch.zeros((STEM_CO, 2), device=x.device)
+    lib = _build.load_library()
+    n_cta = lib.stem_train_num_ctas(b, h, w)
+    partials = torch.empty((n_cta, STEM_CO, 2), dtype=torch.float32,
+                           device=x.device)
+    rc = lib.stem_train_bf16(x.data_ptr(), weight.data_ptr(), pmax.data_ptr(),
+                             pmin.data_ptr(), partials.data_ptr(), b, h, w,
+                             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "stem_train")
+    LAUNCHES += 1
+    return pmax, pmin, partials.sum(dim=0)
+
+
+def reference_stem(x: torch.Tensor, kernel: torch.Tensor, gamma: torch.Tensor,
+                   beta: torch.Tensor, eps: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The decomposition the kernel replaces (`_reference_stem`,
+    `pallas_stem_train.py:257-275`): conv with compute-dtype operands,
+    float32 batch statistics, normalize, ReLU, max pool.  x (B, H, W, 3) in
+    the compute dtype, kernel (16, 3, 3, 3) float32 → (y (B, H/2, W/2, 16)
+    NHWC, mean, var)."""
+    ct = x.dtype
+    c = F.conv2d(x.permute(0, 3, 1, 2), kernel.to(ct), padding=1)
+    cf = c.float()
+    mean, var = batch_moments(cf)
+    shape = (1, -1, 1, 1)
+    y = ((cf - mean.view(shape)) * torch.rsqrt(var + eps).view(shape)
+         * gamma.view(shape) + beta.view(shape))
+    r = torch.relu(y.to(ct))
+    return F.max_pool2d(r, 3, 2, 1).permute(0, 2, 3, 1), mean, var
+
+
+class _FusedTrainStem(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, kernel, gamma, beta, eps):
+        b, h, w, _ = x.shape
+        pmax, pmin, sums = stem_train(x.contiguous(),
+                                      kernel.to(x.dtype).contiguous())
+        n = b * h * w
+        mean = sums[:, 0] / n
+        mean2 = sums[:, 1] / n
+        var = torch.clamp_min(mean2 - mean * mean, 0.0)
+        scale = gamma * torch.rsqrt(var + eps)
+        shift = beta - mean * scale
+        pooled = torch.where(scale >= 0, pmax, pmin)
+        y = torch.relu((pooled.float() * scale + shift).to(x.dtype))
+        ctx.save_for_backward(x, kernel, gamma, beta)
+        ctx.eps = eps
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, gmean, gvar):
+        x, kernel, gamma, beta = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip((x, kernel, gamma, beta), ctx.needs_input_grad[:4])]
+        with torch.enable_grad():
+            outs = reference_stem(*inputs, ctx.eps)
+            wanted = [t for t, need in zip(inputs, ctx.needs_input_grad[:4]) if need]
+            grads = iter(torch.autograd.grad(outs, wanted, (gy, gmean, gvar),
+                                             allow_unused=True))
+        return (*[next(grads) if need else None
+                  for need in ctx.needs_input_grad[:4]], None)
+
+
+def fused_train_stem(x: torch.Tensor, kernel: torch.Tensor, gamma: torch.Tensor,
+                     beta: torch.Tensor, eps: float
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Train-mode stem: (y, batch_mean, batch_var_biased).
+
+    x: (B, H, W, 3) NHWC in the compute dtype, H and W even; kernel (16, 3,
+    3, 3) float32 OIHW; gamma/beta (16,) float32.  y: (B, H/2, W/2, 16) NHWC
+    in the compute dtype.  Differentiable with respect to x, kernel, gamma
+    and beta; the gradient flows through the batch mean and variance."""
+    return _FusedTrainStem.apply(x, kernel, gamma, beta, eps)

@@ -1,13 +1,21 @@
-"""Eval-mode BatchNorm with the JAX package's rounding (`ops/norm.py:47-57`
-of `dcfa_yolo_tpu`).
+"""BatchNorm with the JAX package's semantics and rounding
+(`dcfa_yolo_tpu/ops/norm.py:47-86`), PyTorch's exact running update.
 
-The affine is folded in float32 into a per-channel `inv = rsqrt(var+eps)·γ`
-and `shift = β − mean·inv`, both cast to the activation dtype, and applied as
-one multiply-add in that dtype.  `nn.BatchNorm2d` in eval mode is not used:
-in bfloat16 it rounds at other places.
+Eval mode folds the affine in float32 into a per-channel
+`inv = rsqrt(var+eps)·γ` and `shift = β − mean·inv`, both cast to the
+activation dtype, and applies them as one multiply-add in that dtype.
 
-Names follow `torch.nn.BatchNorm2d` (weight/bias/running_mean/running_var) so
-the flax tree maps onto it by renaming (`models/convert.py`).
+Train mode normalizes with the batch moments, computed in float32 over N, H
+and W as `mean` and `mean²` with `var = max(mean² − mean², 0)`, normalizes in
+float32 and casts to the activation dtype.  Autograd differentiates that
+formula as written, through the batch mean and variance.  The running
+statistics move as in torch: `r ← (1−m)·r + m·stat`, the variance with the
+Bessel factor n/(n−1).  `F.batch_norm` is not used: its variance and its
+backward are other formulas, and in bfloat16 it rounds at other places.
+
+`nn.Module.train()` / `eval()` switch between the two.  Names follow
+`torch.nn.BatchNorm2d` (weight/bias/running_mean/running_var) so the flax
+tree maps onto it by renaming (`models/convert.py`).
 """
 
 from __future__ import annotations
@@ -16,12 +24,33 @@ import torch
 from torch import nn
 
 
-class BatchNorm(nn.Module):
-    """Per-channel eval BatchNorm over dim 1 of an NCHW tensor."""
+def batch_moments(xf: torch.Tensor):
+    """Per-channel (mean, var) of a float32 NCHW tensor over N, H, W, as
+    `ops/norm.py:59-66` of the JAX package computes them."""
+    mean = xf.mean(dim=(0, 2, 3))
+    mean2 = (xf * xf).mean(dim=(0, 2, 3))
+    return mean, torch.clamp_min(mean2 - mean * mean, 0.0)
 
-    def __init__(self, features: int, eps: float = 1e-5):
+
+@torch.no_grad()
+def update_running(bn: "BatchNorm", mean: torch.Tensor, var: torch.Tensor,
+                   n: int) -> None:
+    """torch's running update with momentum `bn.momentum` and the Bessel
+    factor n/(n−1) on the variance (`ops/norm.py:68-73`)."""
+    m = bn.momentum
+    bessel = n / max(n - 1.0, 1.0)
+    bn.running_mean.copy_((1.0 - m) * bn.running_mean + m * mean)
+    bn.running_var.copy_((1.0 - m) * bn.running_var + m * var * bessel)
+
+
+class BatchNorm(nn.Module):
+    """Per-channel BatchNorm over dim 1 of an NCHW tensor.  `momentum` is
+    torch's (the weight of the new batch statistic)."""
+
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -34,7 +63,15 @@ class BatchNorm(nn.Module):
         return inv, shift
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv, shift = self.folded()
         shape = (1, -1, 1, 1)
-        return (x * inv.to(x.dtype).view(shape)
-                + shift.to(x.dtype).view(shape))
+        if not self.training:
+            inv, shift = self.folded()
+            return (x * inv.to(x.dtype).view(shape)
+                    + shift.to(x.dtype).view(shape))
+        xf = x.float()
+        mean, var = batch_moments(xf)
+        update_running(self, mean.detach(), var.detach(),
+                       x.shape[0] * x.shape[2] * x.shape[3])
+        y = (xf - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
+        y = y * self.weight.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from dcfa_yolo_tpu_torch.ops import cuda_nms, cuda_stem
+from dcfa_yolo_tpu_torch.ops import cuda_nms, cuda_stem, cuda_stem_train
 
 pytestmark = pytest.mark.cuda
 
@@ -76,3 +76,26 @@ def test_nms_kernel_matches_plain_exactly(cuda, b, k):
         ref = cuda_nms.greedy_suppress_plain(boxes, alive, thr)
         assert torch.equal(keep, ref)
         assert not keep[-1].any()
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 130), (16, 640, 640), (3, 30, 18)])
+def test_train_stem_kernel_matches_plain(cuda, shape):
+    """Kernel C against stem_train_plain: pools in the v4 class (only the
+    conv's f32 summation order differs), per-channel sums to 1e-3 relative
+    (f32 sums in another order)."""
+    b, h, w = shape
+    rng = np.random.default_rng(h + w)
+    x = torch.from_numpy(rng.random((b, h, w, 3), np.float32)).to(cuda, torch.bfloat16)
+    k = torch.from_numpy((rng.standard_normal((16, 3, 3, 3)) * 0.3).astype(np.float32))
+    k = k.to(cuda, torch.bfloat16)
+    before = cuda_stem_train.LAUNCHES
+    pmax, pmin, sums = cuda_stem_train.stem_train(x, k)
+    torch.cuda.synchronize()
+    assert cuda_stem_train.LAUNCHES == before + 1
+    rmax, rmin, rsums = cuda_stem_train.stem_train_plain(x, k)
+    for got, ref in ((pmax, rmax), (pmin, rmin)):
+        got, ref = got.float().cpu().numpy(), ref.float().cpu().numpy()
+        np.testing.assert_allclose(got, ref, atol=0.03, rtol=0.02)
+        assert (got == ref).mean() >= 0.999
+    np.testing.assert_allclose(sums.cpu().numpy(), rsums.cpu().numpy(), rtol=1e-3,
+                               atol=1e-3 * rsums.abs().max().item())

@@ -63,6 +63,21 @@ def test_default_device_entry_points_raise_without_cuda():
         YOLOPredictor(["obj"], input_shape=(64, 64))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_model(ModelConfig(input_shape=(64, 64)))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_model(ModelConfig(input_shape=(64, 64)), train=True)
     # the explicit CPU request works
     pred = YOLOPredictor(["obj"], input_shape=(64, 64), device="cpu")
     assert pred.device.type == "cpu"
+
+
+def test_trainer_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available here: the default device is usable")
+    from dcfa_yolo_tpu_torch.config import ModelConfig
+    from dcfa_yolo_tpu_torch.models.yolo import init_model
+    from dcfa_yolo_tpu_torch.train.trainer import Trainer
+
+    model = init_model(ModelConfig(input_shape=(64, 64)), device="cpu", train=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(model)
+    assert Trainer(model, device="cpu").device.type == "cpu"
