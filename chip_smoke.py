@@ -2,10 +2,11 @@
 """Smoke run of the PyTorch/CUDA port (`dcfa_yolo_tpu_torch`) on one NVIDIA
 Hopper GPU: builds the hand-written kernels from `dcfa_yolo_tpu_torch/csrc/`,
 holds each against its plain PyTorch version at its path's shapes, times it,
-then drives the two paths of the port at phi='n' 640² bf16: serving through
-`YOLOPredictor` (kernels A and B) and training through `Trainer.train_step`
-(kernel C), and checks that each path went through its kernels and agrees
-with its all-plain version.
+then drives the paths of the port at phi='n' 640² bf16: serving through
+`YOLOPredictor` (kernels A and B), training through `Trainer.train_step`
+(kernel C), the stem split probe (kernel A and its four variants), the
+deploy serving graph and the bench; it checks that each path went through
+its kernels and agrees with its all-plain (or train-graph) version.
 
     python3 chip_smoke.py
 
@@ -20,6 +21,8 @@ from __future__ import annotations
 import dataclasses
 import importlib.util
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -27,9 +30,6 @@ import time
 import numpy as np
 import torch
 
-H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
-H100_BF16_FLOPS = 989e12     # dense tensor-core bf16
-H100_FP32_FLOPS = 67e12      # CUDA-core float32
 SEED = 0
 
 
@@ -40,26 +40,6 @@ class CheckFailed(Exception):
 def check(cond, msg):
     if not cond:
         raise CheckFailed(msg)
-
-
-def cuda_ms(fn, iters, warmup=2):
-    """Mean device time of one call, by CUDA events around `iters` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound(nbytes, ops, peak):
-    t_b, t_o = nbytes / H100_BYTES_PER_S, ops / peak
-    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
 def phase_device():
@@ -83,9 +63,16 @@ def phase_build():
           f"{_build.BUILD_SECONDS:.1f} s")
     for name in _build.SOURCES:
         log = (_build.BUILD_DIR / (name.rsplit(".", 1)[0] + ".log"))
+        fn, stack = "?", ""
         for line in (log.read_text().splitlines() if log.exists() else []):
-            if "Used" in line:
-                print(f"[build] {name}: {line.strip()}")
+            m = re.search(r"Compiling entry function .*?\d([a-z][a-z_]*_kernel)(ILi(\d)E)?",
+                          line)
+            if m:
+                fn = m.group(1) + (f"<{m.group(3)}>" if m.group(3) else "")
+            elif "stack frame" in line:
+                stack = line.strip()
+            elif "Used" in line:
+                print(f"[build] {name} {fn}: {line.split(':', 1)[1].strip()}; {stack}")
 
 
 def serve_inputs(b, seed):
@@ -94,12 +81,21 @@ def serve_inputs(b, seed):
             rng.integers(0, 256, (b, 480, 640, 3), dtype=np.uint8))
 
 
+def stem_library(canvas, w, bias):
+    """Kernel A's yardstick: the same function as one cuDNN bf16 conv (bias
+    included), max pool and ReLU."""
+    import torch.nn.functional as F
+
+    y = F.conv2d(canvas, w, bias.to(torch.bfloat16))
+    return torch.relu(F.max_pool2d(y, 3, 2, 1))
+
+
 def phase_stem(model, dev):
     """Kernel A vs stem_eval_plain at the serving path's shape (b8 640²,
     the letterboxed canvas of 480×640 pairs, weights of the served model)."""
-    import torch.nn.functional as F
     from dcfa_yolo_tpu_torch.ops import cuda_stem
     from dcfa_yolo_tpu_torch.ops.resize import letterbox_batch_cf
+    from dcfa_yolo_tpu_torch.utils.profiling import H100_BF16_FLOPS, bound, device_ms
 
     st = model.backbone_rgb.stem
     w, bias = cuda_stem.fold_stem_params(st.conv.weight, st.bn.weight, st.bn.bias,
@@ -119,21 +115,14 @@ def phase_stem(model, dev):
         check(bool(torch.isfinite(o).all()), "stem kernel output not finite")
         check(ok, f"stem b{b}: {frac:.6f} bit-equal (need 0.999), max err "
               f"{err.max().item():.4g} (atol 0.03, rtol 0.02)")
-        w_lib = w
-        b_lib = bias.to(torch.bfloat16)
-
-        def library():
-            y = F.conv2d(canvas, w_lib, b_lib)
-            return torch.relu(F.max_pool2d(y, 3, 2, 1))
-
         nbytes = canvas.numel() * 2 + out.numel() * 2 + w.numel() * 2 + bias.numel() * 4
         flops = 2 * b * 640 * 640 * 16 * 27
         bound_ms, bound_by = bound(nbytes, flops, H100_BF16_FLOPS)
         res[b] = dict(
             max_abs_err=err.max().item(), bit_equal=frac,
-            ms=cuda_ms(lambda: cuda_stem.stem_eval(canvas, w, bias), 50),
-            plain_ms=cuda_ms(lambda: cuda_stem.stem_eval_plain(canvas, w, bias), 10),
-            library_ms=cuda_ms(library, 50),
+            ms=device_ms(lambda: cuda_stem.stem_eval(canvas, w, bias), 50),
+            plain_ms=device_ms(lambda: cuda_stem.stem_eval_plain(canvas, w, bias), 10),
+            library_ms=device_ms(lambda: stem_library(canvas, w, bias), 50),
             bound_ms=bound_ms, bound_by=bound_by)
         print(f"[stem] b{b} 640²: bit-equal {frac:.6f}, max_abs_err "
               f"{res[b]['max_abs_err']:.4g} | kernel_ms {res[b]['ms']:.4f} "
@@ -167,6 +156,7 @@ def nms_pairs(boxes, alive, thr):
 
 def time_nms(boxes, alive, thr, scores=None):
     from dcfa_yolo_tpu_torch.ops import cuda_nms
+    from dcfa_yolo_tpu_torch.utils.profiling import H100_FP32_FLOPS, bound, device_ms
 
     b, k = alive.shape
     keep = cuda_nms.greedy_suppress(boxes, alive, thr)
@@ -181,15 +171,16 @@ def time_nms(boxes, alive, thr, scores=None):
         # one call over every image's alive candidates, images kept apart by
         # index (classes are already apart by the coordinate offset)
         img = torch.arange(b, device=boxes.device)[:, None].expand(b, k)
-        lib_ms = cuda_ms(lambda: torchvision.ops.batched_nms(
+        lib_ms = device_ms(lambda: torchvision.ops.batched_nms(
             boxes[alive], scores[alive], img[alive], thr), 10)
     pairs = nms_pairs(boxes, alive, thr)
     bound_ms, bound_by = bound(b * k * 18, 12 * pairs, H100_FP32_FLOPS)
     return dict(
         max_abs_err=float((keep.int() - ref.int()).abs().max()),
         kept=int(ref.sum()), pairs=pairs,
-        ms=cuda_ms(lambda: cuda_nms.greedy_suppress(boxes, alive, thr), 20),
-        plain_ms=cuda_ms(lambda: cuda_nms.greedy_suppress_plain(boxes, alive, thr), 2, 1),
+        ms=device_ms(lambda: cuda_nms.greedy_suppress(boxes, alive, thr), 20),
+        plain_ms=device_ms(lambda: cuda_nms.greedy_suppress_plain(boxes, alive, thr), 2,
+                           warmup=1),
         library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -320,6 +311,7 @@ def phase_train_stem(dev):
     the plain decomposition `reference_stem`."""
     import torch.nn.functional as F
     from dcfa_yolo_tpu_torch.ops import cuda_stem_train as cst
+    from dcfa_yolo_tpu_torch.utils.profiling import H100_BF16_FLOPS, bound, device_ms
 
     b, h, w = 16, 640, 640
     rng = np.random.default_rng(SEED + 30)
@@ -372,9 +364,9 @@ def phase_train_stem(dev):
     nbytes = x.numel() * 2 + 2 * pmax.numel() * 2 + k.numel() * 2 + sums.numel() * 4
     bound_ms, bound_by = bound(nbytes, 2 * b * h * w * 16 * 27, H100_BF16_FLOPS)
     t = dict(max_abs_err=max(res["pmax"][0], res["pmin"][0]),
-             ms=cuda_ms(lambda: cst.stem_train(x, k), 20),
-             plain_ms=cuda_ms(lambda: cst.stem_train_plain(x, k), 5),
-             library_ms=cuda_ms(library, 20), bound_ms=bound_ms, bound_by=bound_by)
+             ms=device_ms(lambda: cst.stem_train(x, k), 20),
+             plain_ms=device_ms(lambda: cst.stem_train_plain(x, k), 5),
+             library_ms=device_ms(library, 20), bound_ms=bound_ms, bound_by=bound_by)
     print(f"[train_stem] b{b} 640² bf16: pmax bit-equal {res['pmax'][1]:.6f}, pmin "
           f"{res['pmin'][1]:.6f}, max_abs_err {t['max_abs_err']:.4g}, sums rel err "
           f"{sum_err:.3g} (tol 1e-3) | fused y vs reference {y_frac:.6f} bit-equal | "
@@ -469,6 +461,152 @@ def phase_train(dev):
     return launches
 
 
+def phase_probe(dev):
+    """The stem split probe at b16 640²: its entry point, with the launch
+    counts read around exactly that run; then each variant against its plain
+    version (pool exactly, the others in the v4 class) and dblbuf and pipe
+    against full, bit for bit."""
+    import torch.nn.functional as F
+    from dcfa_yolo_tpu_torch.ops import cuda_stem
+    from dcfa_yolo_tpu_torch.ops import cuda_stem_probe as csp
+    from dcfa_yolo_tpu_torch.tools import stem_split_probe as probe
+    from dcfa_yolo_tpu_torch.utils.profiling import device_ms
+
+    b, size = 16, 640
+    cuda_stem.LAUNCHES = 0
+    for v in csp.LAUNCHES:
+        csp.LAUNCHES[v] = 0
+    res = probe.run(b, size, dev, iters=20)
+    torch.cuda.synchronize()
+    launches = dict(csp.LAUNCHES, full=cuda_stem.LAUNCHES)
+    check(all(n > 0 for n in launches.values()),
+          f"a probe variant was not launched: {launches}")
+
+    canvas, w, bias = probe.make_inputs(b, size, dev)
+    full = cuda_stem.stem_eval(canvas, w, bias)
+    b_lib = bias.to(torch.bfloat16)
+    library = {"full": lambda: stem_library(canvas, w, bias),
+               "conv": lambda: F.conv2d(canvas, w, b_lib, stride=2),
+               "pool": None}
+    out = {}
+    for v in csp.VARIANTS:
+        got = csp.stem_probe(v, canvas, w, bias)
+        torch.cuda.synchronize()
+        ref = csp.PLAIN[v](canvas, w, bias)
+        o, r = got.float(), ref.float()
+        err = (o - r).abs()
+        frac = (o == r).float().mean().item()
+        check(bool(torch.isfinite(o).all()), f"probe {v}: output not finite")
+        if v == "pool":
+            check(torch.equal(got, ref), f"probe pool: {frac:.6f} bit-equal to its "
+                  f"plain version (need 1.0)")
+        else:
+            check(bool(torch.all(err <= 0.03 + 0.02 * r.abs())) and frac >= 0.999,
+                  f"probe {v}: {frac:.6f} bit-equal (need 0.999), max err "
+                  f"{err.max().item():.4g} (atol 0.03, rtol 0.02)")
+        same = None
+        if v in ("dblbuf", "pipe"):
+            same = torch.equal(got, full) and res[v]["bit_identical_to_full"]
+            check(same, f"probe {v} is not bit-identical to full")
+        lib = library.get(v, library["full"])
+        bound_ms, bound_by = res[v]["bound_ms"], res[v]["bound_by"]
+        out[v] = dict(max_abs_err=err.max().item(), bit_equal=frac, ms=res[v]["ms"],
+                      plain_ms=device_ms(lambda: csp.PLAIN[v](canvas, w, bias), 5),
+                      library_ms=None if lib is None else device_ms(lib, 20),
+                      bound_ms=bound_ms, bound_by=bound_by, launches=launches[v])
+        t = out[v]
+        lib_s = "null" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
+        print(f"[probe] {v:6s} b{b} {size}²: launches {launches[v]}, bit-equal to plain "
+              f"{frac:.6f}, max_abs_err {t['max_abs_err']:.4g}"
+              + ("" if same is None else ", bit-identical to full")
+              + f" | kernel_ms {t['ms']:.4f} ({t['ms'] / b * 1e3:.2f} us/img) plain_ms "
+              f"{t['plain_ms']:.4f} library_ms {lib_s} bound_ms {bound_ms:.5f} "
+              f"({bound_by})")
+    split = (out["conv"]["ms"] + out["pool"]["ms"]) / out["full"]["ms"]
+    print(f"[probe] split: conv {out['conv']['ms']:.4f} + pool {out['pool']['ms']:.4f} "
+          f"= {split:.3f} of full {out['full']['ms']:.4f} ms; dblbuf "
+          f"{out['dblbuf']['ms'] / out['full']['ms']:.3f}, pipe "
+          f"{out['pipe']['ms'] / out['full']['ms']:.3f} of full")
+    return out
+
+
+def phase_deploy(dev):
+    """The deploy serving graph: YOLOPredictor(deploy, fold_shuffle,
+    cast_weights) at b8 640² bf16, with the launch counts read around its b8
+    batch; against the train-graph predictor from the same init_model
+    weights at the serving limits (per anchor: scores 0.005, boxes 0.5 px,
+    classes equal; NMS kernel == plain on the same predictions)."""
+    from dcfa_yolo_tpu_torch.infer.pipeline import predict
+    from dcfa_yolo_tpu_torch.infer.predictor import YOLOPredictor
+    from dcfa_yolo_tpu_torch.ops import cuda_nms, cuda_stem
+    from dcfa_yolo_tpu_torch.ops.nms import batched_nms
+
+    kw = dict(input_shape=(640, 640), phi="n", confidence=0.001, nms_iou=0.5,
+              compute_dtype="bfloat16", seed=SEED)
+    dep = YOLOPredictor(["object"], deploy=True, fold_shuffle=True, cast_weights=True, **kw)
+    base = YOLOPredictor(["object"], **kw)
+    rgb8, nir8 = serve_inputs(8, SEED + 50)
+    cuda_stem.LAUNCHES = cuda_nms.LAUNCHES = 0
+    dets = dep.detect_batch(rgb8, nir8)
+    torch.cuda.synchronize()
+    launches = {"stem_eval": cuda_stem.LAUNCHES, "nms_suppress": cuda_nms.LAUNCHES}
+    print(f"[deploy] b8 batch: launches {launches}, detections "
+          f"{[len(d[0]) for d in dets]}")
+    check(launches == {"stem_eval": 2, "nms_suppress": 1},
+          f"expected 2 stem and 1 NMS launches on the deploy path, got {launches}")
+    for boxes, scores, _ in dets:
+        check(len(boxes) > 0 and np.isfinite(boxes).all() and np.isfinite(scores).all(),
+              "deploy path: no or non-finite detections")
+
+    bd, sd, cd = predict(dep.model, rgb8, nir8)
+    bb, sb, cb = predict(base.model, rgb8, nir8)
+    box_err = ((bd - bb).abs().max() * 640).item()
+    score_err = (sd - sb).abs().max().item()
+    print(f"[deploy] deploy + folded + cast vs train graph, b8 per-anchor: max "
+          f"|Δscore| {score_err:.3g} (tol 0.005), max |Δbox| {box_err:.3g} px (tol 0.5)")
+    check(torch.equal(cd, cb) and score_err <= 0.005 and box_err <= 0.5,
+          "the deploy graph disagrees with the train graph")
+    nms_kw = dict(conf_thres=0.001, iou_thres=0.5, pre_nms_topk=1024, max_det=300)
+    rk = batched_nms(bd, sd, cd, backend="kernel", **nms_kw)
+    rp = batched_nms(bd, sd, cd, backend="plain", **nms_kw)
+    for name in rk._fields:
+        check(torch.equal(getattr(rk, name), getattr(rp, name)),
+              f"NMS {name} differs between kernel and plain on the deploy predictions")
+    print("[deploy] NMS kernel == plain on the deploy b8 predictions")
+
+    def rate(pred):
+        pred.detect_batch(rgb8, nir8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            pred.detect_batch(rgb8, nir8)
+        torch.cuda.synchronize()
+        return 80 / (time.perf_counter() - t0)
+
+    print(f"[deploy] b8 pairs/s (host clock, 10 calls): deploy graph {rate(dep):.1f}, "
+          f"train graph {rate(base):.1f}")
+    return launches
+
+
+def phase_bench():
+    """The port's bench at BENCH_BATCH=32, BENCH_ITERS=5, with the stem and
+    NMS kernels' launch counts read around it; its JSON on a line of its
+    own."""
+    from dcfa_yolo_tpu_torch import bench
+    from dcfa_yolo_tpu_torch.ops import cuda_nms, cuda_stem
+
+    os.environ.update(BENCH_BATCH="32", BENCH_ITERS="5")
+    cuda_stem.LAUNCHES = cuda_nms.LAUNCHES = 0
+    res = bench.run()
+    launches = {"stem_eval": cuda_stem.LAUNCHES, "nms_suppress": cuda_nms.LAUNCHES}
+    print(f"[bench] launches {launches}")
+    print(json.dumps(res))
+    check(np.isfinite(res["value"]) and res["value"] > 0 and res["mfu"] <= 1.0,
+          f"bench: implausible result {res['value']} pairs/s, mfu {res['mfu']}")
+    check(launches["stem_eval"] > 0 and launches["nms_suppress"] > 0,
+          f"the bench did not launch the stem and NMS kernels: {launches}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA "
@@ -495,20 +633,29 @@ def main() -> int:
         launches, nms_t = phase_serve(dev)
         train_stem_t = phase_train_stem(dev)
         launches["stem_train"] = phase_train(dev)["stem_train"]
+        probe_t = phase_probe(dev)
+        phase_deploy(dev)
+        phase_bench()
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    probe_src = "dcfa_yolo_tpu_torch/csrc/stem_probe.cu"
     kernels = []
-    for name, src, rep, t in (
+    for name, src, rep, t, n in (
             ("stem_eval", "dcfa_yolo_tpu_torch/csrc/stem_eval.cu",
-             "dcfa_yolo_tpu/ops/pallas_stem.py:200", stem_t),
+             "dcfa_yolo_tpu/ops/pallas_stem.py:200", stem_t, launches["stem_eval"]),
             ("nms_suppress", "dcfa_yolo_tpu_torch/csrc/nms_suppress.cu",
-             "dcfa_yolo_tpu/ops/pallas_nms.py:40", nms_t),
+             "dcfa_yolo_tpu/ops/pallas_nms.py:40", nms_t, launches["nms_suppress"]),
             ("stem_train", "dcfa_yolo_tpu_torch/csrc/stem_train.cu",
-             "dcfa_yolo_tpu/ops/pallas_stem_train.py:82", train_stem_t)):
+             "dcfa_yolo_tpu/ops/pallas_stem_train.py:82", train_stem_t,
+             launches["stem_train"]),
+            *((f"stem_probe_{v}", probe_src,
+               "tools/stem_split_probe.py:" + ("112" if v == "pipe" else "49"),
+               probe_t[v], probe_t[v]["launches"])
+              for v in ("conv", "pool", "dblbuf", "pipe"))):
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=rep,
-            launches=launches[name], max_abs_err=t["max_abs_err"], ms=t["ms"],
+            launches=n, max_abs_err=t["max_abs_err"], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"]))
     print(f"[done] {time.perf_counter() - t0:.1f} s")

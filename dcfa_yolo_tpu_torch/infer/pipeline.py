@@ -27,18 +27,24 @@ _STEM_NAMES = {"kernel": "kernel", "pallas": "kernel", "pallas_d": "kernel",
                "plain": "plain", "xla": "plain"}
 
 
+def kernel_stem_eligible(cfg: ModelConfig) -> bool:
+    """Whether the fused stem kernel applies to this model: 16 stem
+    channels, bf16 compute (in float32 the plain graph keeps float32
+    precision, as the JAX package's 'auto' does) and an even input shape."""
+    return (cfg.base_channels == STEM_CO
+            and cfg.compute_dtype == "bfloat16"
+            and cfg.input_shape[0] % 2 == 0
+            and cfg.input_shape[1] % 2 == 0)
+
+
 def resolve_stem(stem: str, cfg: ModelConfig, device: torch.device) -> str:
     """'kernel' (the fused stem) or 'plain' (the ConvMaxpool graph).
 
-    'auto' picks the kernel on a CUDA device wherever it applies: 16 stem
-    channels, bf16 compute (in float32 the plain graph keeps float32
-    precision, as the JAX package's 'auto' does) and an even input shape.
-    An explicit kernel request that cannot be met raises.
+    'auto' picks the kernel on a CUDA device wherever it applies
+    (`kernel_stem_eligible`).  An explicit kernel request that cannot be
+    met raises.
     """
-    eligible = (cfg.base_channels == STEM_CO
-                and cfg.compute_dtype == "bfloat16"
-                and cfg.input_shape[0] % 2 == 0
-                and cfg.input_shape[1] % 2 == 0)
+    eligible = kernel_stem_eligible(cfg)
     if stem == "auto":
         return "kernel" if device.type == "cuda" and eligible else "plain"
     if stem not in _STEM_NAMES:

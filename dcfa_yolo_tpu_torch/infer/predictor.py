@@ -1,10 +1,12 @@
-"""User-facing detection facade (`dcfa_yolo_tpu/infer/predictor.py:42-207`),
-minimal: construction, `detect`, `detect_batch` and the NMS cap counters.
-Drawing, fps, heatmaps, map-txt output and checkpoint loading are not
-ported yet (ROADMAP.md)."""
+"""User-facing detection facade (`dcfa_yolo_tpu/infer/predictor.py:42-268`):
+construction (train or deploy graph, folded shuffles, pre-cast kernels),
+`detect`, `detect_batch`, `get_fps` and the NMS cap counters.  Drawing,
+heatmaps, map-txt output and checkpoint loading are not ported yet
+(ROADMAP.md)."""
 
 from __future__ import annotations
 
+import time
 from typing import Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -14,7 +16,8 @@ from dcfa_yolo_tpu_torch.config import ModelConfig
 from dcfa_yolo_tpu_torch.device import resolve_device
 from dcfa_yolo_tpu_torch.infer.pipeline import detect_batch
 from dcfa_yolo_tpu_torch.models.convert import from_jax_variables
-from dcfa_yolo_tpu_torch.models.yolo import DCFAYolo, init_model
+from dcfa_yolo_tpu_torch.models.reparam import cast_model_conv_kernels
+from dcfa_yolo_tpu_torch.models.yolo import _DTYPES, DCFAYolo, init_model
 
 
 def pil_to_rgb_array(image) -> np.ndarray:
@@ -30,8 +33,13 @@ class YOLOPredictor:
     `device="cpu"` is passed.
 
     Weights come from `variables` (a flax `{"params", "batch_stats"}` tree
-    of arrays, carried by `models/convert.py`) or, without them, from
-    `init_model(cfg, seed)`.
+    of arrays, carried by `models/convert.py`, that must match the chosen
+    graph: the output of the JAX `deploy_variables` for deploy=True, of
+    `fold_shuffle_variables` for fold_shuffle=True) or, without them, from
+    `init_model(cfg, seed, deploy=..., fold_shuffle=...)`, which makes
+    train-graph weights and transforms them.  cast_weights pre-casts the
+    conv kernels to the compute dtype (`models/reparam.py::cast_model_conv_kernels`),
+    only when that is not float32, as in the JAX package.
     """
 
     def __init__(self, class_names: Sequence[str], input_shape=(640, 640),
@@ -39,7 +47,9 @@ class YOLOPredictor:
                  nms_iou: float = 0.3, max_det: int = 300,
                  pre_nms_topk: int = 1024, compute_dtype: str = "float32",
                  variables: Optional[Mapping] = None, seed: int = 0,
-                 nms: str = "auto", stem: str = "auto", device="cuda"):
+                 nms: str = "auto", stem: str = "auto", device="cuda",
+                 deploy: bool = False, fold_shuffle: bool = False,
+                 cast_weights: bool = False):
         self.class_names = list(class_names)
         self.num_classes = len(self.class_names)
         self.confidence = confidence
@@ -53,11 +63,14 @@ class YOLOPredictor:
                                input_shape=tuple(input_shape),
                                compute_dtype=compute_dtype)
         if variables is not None:
-            model = DCFAYolo(self.cfg)
+            model = DCFAYolo(self.cfg, deploy=deploy, fold_shuffle=fold_shuffle)
             model.load_state_dict(from_jax_variables(variables), strict=True)
-            self.model = model.to(self.device).eval()
         else:
-            self.model = init_model(self.cfg, seed, self.device)
+            model = init_model(self.cfg, seed, "cpu", deploy=deploy,
+                               fold_shuffle=fold_shuffle)
+        if cast_weights and compute_dtype != "float32":
+            cast_model_conv_kernels(model, _DTYPES[compute_dtype])
+        self.model = model.to(self.device).eval()
         # cap-binding counters (the reference NMS is uncapped; these make
         # the fixed-shape caps' deviation observable)
         self.cap_stats = dict(images=0, topk_bound=0, max_det_saturated=0,
@@ -109,3 +122,17 @@ class YOLOPredictor:
             n = int(res.valid[b].sum())
             out.append((res.boxes[b][:n], res.scores[b][:n], res.classes[b][:n]))
         return out
+
+    def get_fps(self, image_rgb, image_nir, test_interval: int = 100) -> float:
+        """Mean seconds per full pipeline call on one pair, after one
+        warm-up call, each call ending in a device synchronise
+        (`predictor.py:256-268`, the reference's `get_FPS`)."""
+        rgb = pil_to_rgb_array(image_rgb)[None]
+        nir = pil_to_rgb_array(image_nir)[None]
+        self._run(rgb, nir, None)
+        t0 = time.perf_counter()
+        for _ in range(test_interval):
+            self._run(rgb, nir, None)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        return (time.perf_counter() - t0) / test_interval

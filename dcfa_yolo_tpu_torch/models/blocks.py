@@ -107,10 +107,15 @@ class ShuffleNetV2Block(nn.Module):
     """Stride-1 ShuffleNetV2 unit (`nets/yolo_mul.py:118-168`): channel
     split, identity ∥ (1x1 → 3x3 dw → 1x1), concat, shuffle.  Quirk kept:
     the depthwise conv has bias=True (torch default at line 144) while the
-    1x1 convs are bias-free.  The backbone uses only stride 1."""
+    1x1 convs are bias-free.  The backbone uses only stride 1.
 
-    def __init__(self, c: int):
+    skip_shuffle: the serving graph without the final shuffle (JAX
+    `blocks.py:186-195`), valid only with the consumers' weights permuted by
+    `models/reparam.py::fold_shuffle_state_dict`."""
+
+    def __init__(self, c: int, skip_shuffle: bool = False):
         super().__init__()
+        self.skip_shuffle = skip_shuffle
         bf = c // 2
         self.b2_conv1 = Conv(bf, bf, 1)
         self.b2_bn1 = BatchNorm(bf)
@@ -124,7 +129,8 @@ class ShuffleNetV2Block(nn.Module):
         y = torch.relu(self.b2_bn1(self.b2_conv1(x2)))
         y = self.b2_bn2(self.b2_dwconv(y))
         y = torch.relu(self.b2_bn3(self.b2_conv3(y)))
-        return channel_shuffle(torch.cat([x1, y], dim=1), 2)
+        out = torch.cat([x1, y], dim=1)
+        return out if self.skip_shuffle else channel_shuffle(out, 2)
 
 
 class SPPFCBAM(nn.Module):
@@ -169,24 +175,32 @@ class ConcatBiFPN(nn.Module):
 
 
 class RepGhostModule(nn.Module):
-    """RepGhost, train graph (deploy=False, `nets/repghost.py:70-115`):
-    primary 1x1 conv+BN(+SiLU) → cheap 3x3 depthwise conv+BN plus the
-    fusion-BN of the primary output."""
+    """RepGhost (`nets/repghost.py:70-115`, JAX `blocks.py:337-381`): primary
+    1x1 conv+BN(+SiLU), then the cheap 3x3 depthwise branch.
 
-    def __init__(self, c_in: int, c_out: int, relu: bool = True):
+    deploy=False (train graph): cheap = bias-free dw conv + BN, plus the
+    fusion-BN of the primary output.  deploy=True: one biased dw conv, made
+    from the train weights by `models/reparam.py::deploy_state_dict`."""
+
+    def __init__(self, c_in: int, c_out: int, relu: bool = True,
+                 deploy: bool = False):
         super().__init__()
         self.relu = relu
+        self.deploy = deploy
         self.primary_conv = Conv(c_in, c_out, 1, p=0)
         self.primary_bn = BatchNorm(c_out)
-        self.cheap_conv = Conv(c_out, c_out, 3, 1, p=1, g=c_out)
-        self.cheap_bn = BatchNorm(c_out)
-        self.fusion_bn = BatchNorm(c_out)
+        self.cheap_conv = Conv(c_out, c_out, 3, 1, p=1, g=c_out, bias=deploy)
+        if not deploy:
+            self.cheap_bn = BatchNorm(c_out)
+            self.fusion_bn = BatchNorm(c_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x1 = self.primary_bn(self.primary_conv(x))
         if self.relu:
             x1 = silu(x1)
-        x2 = self.cheap_bn(self.cheap_conv(x1)) + self.fusion_bn(x1)
+        x2 = self.cheap_conv(x1)
+        if not self.deploy:
+            x2 = self.cheap_bn(x2) + self.fusion_bn(x1)
         if self.relu:
             x2 = silu(x2)
         return x2
@@ -197,10 +211,10 @@ class RepGhostBottleneck(nn.Module):
     ghost expand → ghost project (no act) → + identity shortcut (in = out
     channels, stride 1, no SE)."""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, deploy: bool = False):
         super().__init__()
-        self.ghost1 = RepGhostModule(c, c, relu=True)
-        self.ghost2 = RepGhostModule(c, c, relu=False)
+        self.ghost1 = RepGhostModule(c, c, relu=True, deploy=deploy)
+        self.ghost2 = RepGhostModule(c, c, relu=False, deploy=deploy)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.ghost2(self.ghost1(x)) + x
@@ -212,14 +226,14 @@ class C2fRepGhost(nn.Module):
     `nets/repghost.py:291-305`)."""
 
     def __init__(self, c_in: int, c_out: int, n: int = 1,
-                 expansion: float = 0.5):
+                 expansion: float = 0.5, deploy: bool = False):
         super().__init__()
         self.c = int(c_out * expansion)
         self.n = n
         self.cv1 = ConvBnAct(c_in, 2 * self.c, 1, 1, bn_eps=1e-5,
                              bn_momentum=0.1)
         for i in range(n):
-            self.add_module(f"m{i}", RepGhostBottleneck(self.c))
+            self.add_module(f"m{i}", RepGhostBottleneck(self.c, deploy))
         self.cv2 = ConvBnAct((2 + n) * self.c, c_out, 1, 1, bn_eps=1e-5,
                              bn_momentum=0.1)
 

@@ -44,28 +44,37 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 
 class DCFAYolo(nn.Module):
     """Dual-backbone (RGB+NIR) detector with CBAM cross-feature fusion,
-    RepGhost PAN neck and YOLOv8 decoupled DFL head (train-graph weights).
-    `train()` / `eval()` switch every BatchNorm between batch and running
-    statistics; `train_feats` is the train forward."""
+    RepGhost PAN neck and YOLOv8 decoupled DFL head.  `train()` / `eval()`
+    switch every BatchNorm between batch and running statistics;
+    `train_feats` is the train forward.
 
-    def __init__(self, cfg: ModelConfig):
+    deploy / fold_shuffle select the serving graphs of JAX `yolo.py:47-53`:
+    RepGhost modules as one biased depthwise conv, and ShuffleNet units
+    without their final shuffle.  Their weights come from the train-graph
+    state_dict through `models/reparam.py` (`init_model` applies it)."""
+
+    def __init__(self, cfg: ModelConfig, deploy: bool = False,
+                 fold_shuffle: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.deploy = deploy
+        self.fold_shuffle = fold_shuffle
         bc, deep, depth = cfg.base_channels, cfg.deep_channels, cfg.base_depth
-        self.backbone_rgb = Backbone(bc, deep, cfg.train_stem_backend)
-        self.backbone_nir = Backbone(bc, deep, cfg.train_stem_backend)
+        self.backbone_rgb = Backbone(bc, deep, cfg.train_stem_backend, fold_shuffle)
+        self.backbone_nir = Backbone(bc, deep, cfg.train_stem_backend, fold_shuffle)
         for mod in ("rgb", "nir"):
             for i, c in enumerate((bc * 4, bc * 8, deep), start=1):
                 self.add_module(f"cbam_{mod}_feat{i}", CBAM(c))
         # one ConcatBiFPN shared by all three fusion points, like the
         # reference's single `self.bi_fpn` (`nets/yolo_mul.py:344`)
         self.bi_fpn = ConcatBiFPN()
-        self.conv3_for_upsample1 = C2fRepGhost(deep + 2 * bc * 8, bc * 8, depth)
-        self.conv3_for_upsample2 = C2fRepGhost(bc * 8 + 2 * bc * 4, bc * 4, depth)
+        c2f = dict(n=depth, deploy=deploy)
+        self.conv3_for_upsample1 = C2fRepGhost(deep + 2 * bc * 8, bc * 8, **c2f)
+        self.conv3_for_upsample2 = C2fRepGhost(bc * 8 + 2 * bc * 4, bc * 4, **c2f)
         self.down_sample1 = ConvBnAct(bc * 4, bc * 4, 3, 2)
-        self.conv3_for_downsample1 = C2fRepGhost(bc * 4 + bc * 8, bc * 8, depth)
+        self.conv3_for_downsample1 = C2fRepGhost(bc * 4 + bc * 8, bc * 8, **c2f)
         self.down_sample2 = ConvBnAct(bc * 8, bc * 8, 3, 2)
-        self.conv3_for_downsample2 = C2fRepGhost(bc * 8 + 2 * deep, deep, depth)
+        self.conv3_for_downsample2 = C2fRepGhost(bc * 8 + 2 * deep, deep, **c2f)
 
         ch = cfg.feat_channels
         c2 = max(16, ch[0] // 4, cfg.reg_max * 4)
@@ -189,7 +198,8 @@ def _init_value(name: str, shape, seed: int) -> np.ndarray:
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
-               train: bool = False) -> DCFAYolo:
+               train: bool = False, deploy: bool = False,
+               fold_shuffle: bool = False) -> DCFAYolo:
     """A DCFAYolo on `device` with deterministic weights made from `seed`
     with numpy (no JAX needed).
 
@@ -198,18 +208,34 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
     flax initial state (BN γ=1, β=0, running mean 0 and var 1, BiFPN w=1)
     with the reference's `weights_init` drawn over it
     (`train/init_weights.py::reference_weights_init`), bit-identical to the
-    JAX package's for the same seed."""
+    JAX package's for the same seed.
+
+    The weights are always made for the train graph; deploy / fold_shuffle
+    then transform them (`models/reparam.py`) for the serving graph, as JAX
+    `infer/predictor.py:108-140` does."""
     dev = resolve_device(device)
     model = DCFAYolo(cfg)
     if train:
         from dcfa_yolo_tpu_torch.train.init_weights import reference_weights_init
 
         reference_weights_init(model, seed)
-        return model.to(dev).train()
-    sd = {k: torch.from_numpy(_init_value(k, tuple(v.shape), seed))
-          for k, v in model.state_dict().items()}
-    model.load_state_dict(sd, strict=True)
-    return model.to(dev).eval()
+    else:
+        model.load_state_dict(
+            {k: torch.from_numpy(_init_value(k, tuple(v.shape), seed))
+             for k, v in model.state_dict().items()}, strict=True)
+    if deploy or fold_shuffle:
+        from dcfa_yolo_tpu_torch.models.reparam import (deploy_state_dict,
+                                                        fold_shuffle_state_dict)
+
+        sd = model.state_dict()
+        if deploy:
+            sd = deploy_state_dict(sd)
+        if fold_shuffle:
+            sd = fold_shuffle_state_dict(sd)
+        model = DCFAYolo(cfg, deploy=deploy, fold_shuffle=fold_shuffle)
+        model.load_state_dict(sd, strict=True)
+    model = model.to(dev)
+    return model.train() if train else model.eval()
 
 
 def count_params(model: nn.Module) -> int:

@@ -31,6 +31,7 @@ SOURCES = {
     "stem_eval.cu": [],
     "nms_suppress.cu": ["-fmad=false"],
     "stem_train.cu": [],
+    "stem_probe.cu": [],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -95,6 +96,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.stem_train_num_ctas.restype = i
     lib.stem_train_bf16.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.stem_train_bf16.restype = i
+    lib.stem_probe_bf16.argtypes = [i, p, p, p, p, i, i, i, p]
+    lib.stem_probe_bf16.restype = i
     lib.dcfa_error_string.argtypes = [i]
     lib.dcfa_error_string.restype = ctypes.c_char_p
 

@@ -52,12 +52,11 @@ def stem_eval_plain(canvas: torch.Tensor, weight: torch.Tensor,
     return y.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
 
 
-def stem_eval(canvas: torch.Tensor, weight: torch.Tensor,
-              bias: torch.Tensor) -> torch.Tensor:
-    """Fused stem on the zero-bordered raw canvas (B, 3, H+2, W+2) bf16 with
-    `fold_stem_params` weights → (B, H/2, W/2, 16) bf16 NHWC.  Launches the
-    CUDA kernel for a CUDA tensor; a CPU tensor takes `stem_eval_plain`."""
-    global LAUNCHES
+def check_stem_inputs(canvas: torch.Tensor, weight: torch.Tensor,
+                      bias: torch.Tensor) -> Tuple[int, int, int]:
+    """Raise on inputs the stem kernels do not take; returns (B, H, W).
+    Device, dtype and contiguity are checked for CUDA tensors only: a CPU
+    tensor goes to the plain version."""
     if canvas.dim() != 4 or canvas.shape[1] != 3:
         raise ValueError(f"canvas must be (B, 3, H+2, W+2), got {tuple(canvas.shape)}")
     b, _, h2, w2 = canvas.shape
@@ -68,16 +67,27 @@ def stem_eval(canvas: torch.Tensor, weight: torch.Tensor,
         raise ValueError(f"weight must be ({STEM_CO}, 3, 3, 3) and bias "
                          f"({STEM_CO},), got {tuple(weight.shape)}, "
                          f"{tuple(bias.shape)}")
+    if canvas.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the stem runs on CUDA or CPU, got {canvas.device}")
+    if canvas.device.type == "cuda":
+        for name, t, dt in (("canvas", canvas, torch.bfloat16),
+                            ("weight", weight, torch.bfloat16),
+                            ("bias", bias, torch.float32)):
+            if t.device != canvas.device or t.dtype != dt or not t.is_contiguous():
+                raise ValueError(f"{name} must be a contiguous {dt} tensor on "
+                                 f"{canvas.device}, got {t.dtype} on {t.device}")
+    return b, h, w
+
+
+def stem_eval(canvas: torch.Tensor, weight: torch.Tensor,
+              bias: torch.Tensor) -> torch.Tensor:
+    """Fused stem on the zero-bordered raw canvas (B, 3, H+2, W+2) bf16 with
+    `fold_stem_params` weights → (B, H/2, W/2, 16) bf16 NHWC.  Launches the
+    CUDA kernel for a CUDA tensor; a CPU tensor takes `stem_eval_plain`."""
+    global LAUNCHES
+    b, h, w = check_stem_inputs(canvas, weight, bias)
     if canvas.device.type == "cpu":
         return stem_eval_plain(canvas, weight, bias)
-    if canvas.device.type != "cuda":
-        raise ValueError(f"stem_eval runs on CUDA or CPU, got {canvas.device}")
-    for name, t, dt in (("canvas", canvas, torch.bfloat16),
-                        ("weight", weight, torch.bfloat16),
-                        ("bias", bias, torch.float32)):
-        if t.device != canvas.device or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous {dt} tensor on "
-                             f"{canvas.device}, got {t.dtype} on {t.device}")
     out = torch.empty((b, h // 2, w // 2, STEM_CO), dtype=torch.bfloat16,
                       device=canvas.device)
     if b == 0:

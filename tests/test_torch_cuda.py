@@ -99,3 +99,62 @@ def test_train_stem_kernel_matches_plain(cuda, shape):
         assert (got == ref).mean() >= 0.999
     np.testing.assert_allclose(sums.cpu().numpy(), rsums.cpu().numpy(), rtol=1e-3,
                                atol=1e-3 * rsums.abs().max().item())
+
+
+def _probe_inputs(cuda, b, h, w):
+    """A random uint8 canvas with its zero border and fold_stem_params
+    weights of a random stem, on the card."""
+    rng = np.random.default_rng(b * h + w)
+    canvas = np.zeros((b, 3, h + 2, w + 2), np.float32)
+    canvas[:, :, 1:-1, 1:-1] = rng.integers(0, 256, (b, 3, h, w))
+    k = torch.from_numpy((rng.standard_normal((16, 3, 3, 3)) * 0.3).astype(np.float32))
+    gamma, beta, mean = (torch.from_numpy((rng.standard_normal(16) * s + m).astype(np.float32))
+                         for s, m in ((0.2, 1.0), (0.2, 0.0), (0.1, 0.0)))
+    var = torch.from_numpy((rng.random(16) + 0.5).astype(np.float32))
+    w_f, bias = (t.to(cuda) for t in cuda_stem.fold_stem_params(k, gamma, beta, mean, var))
+    return torch.from_numpy(canvas).to(cuda, torch.bfloat16), w_f, bias
+
+
+@pytest.mark.parametrize("variant", ["conv", "pool", "dblbuf", "pipe"])
+@pytest.mark.parametrize("shape", [(2, 64, 130), (1, 640, 640), (3, 30, 18)])
+def test_probe_kernel_matches_plain(cuda, variant, shape):
+    """Each probe kernel against its plain version: conv in the v4 class
+    (only the f32 summation order differs), pool exactly (the same f32 adds
+    in the same order), dblbuf and pipe bit-identical to kernel A."""
+    from dcfa_yolo_tpu_torch.ops import cuda_stem_probe as csp
+
+    x, w_f, bias = _probe_inputs(cuda, *shape)
+    before = csp.LAUNCHES[variant]
+    out = csp.stem_probe(variant, x, w_f, bias)
+    torch.cuda.synchronize()
+    assert csp.LAUNCHES[variant] == before + 1
+    ref = csp.PLAIN[variant](x, w_f, bias)
+    if variant == "pool":
+        assert torch.equal(out, ref)
+    else:
+        got, want = out.float().cpu().numpy(), ref.float().cpu().numpy()
+        np.testing.assert_allclose(got, want, atol=0.03, rtol=0.02)
+        assert (got == want).mean() >= 0.999
+    if variant in ("dblbuf", "pipe"):
+        assert torch.equal(out, cuda_stem.stem_eval(x, w_f, bias))
+
+
+def test_deploy_predictor_matches_train_graph(cuda):
+    """The served deploy graph (RepGhost fused, shuffles folded, kernels
+    pre-cast to bf16) against the train graph from the same weights at 640²
+    bf16, per anchor, at the serving limits (PERF.md section 2)."""
+    from dcfa_yolo_tpu_torch.infer.pipeline import predict
+    from dcfa_yolo_tpu_torch.infer.predictor import YOLOPredictor
+
+    kw = dict(input_shape=(640, 640), compute_dtype="bfloat16", device=cuda)
+    dep = YOLOPredictor(["obj"], deploy=True, fold_shuffle=True, cast_weights=True, **kw)
+    base = YOLOPredictor(["obj"], **kw)
+    assert dep.model.backbone_rgb.dark3_conv.conv.weight.dtype == torch.bfloat16
+    rng = np.random.default_rng(0)
+    rgb = rng.integers(0, 256, (2, 480, 640, 3), dtype=np.uint8)
+    nir = rng.integers(0, 256, (2, 480, 640, 3), dtype=np.uint8)
+    bd, sd, cd = predict(dep.model, rgb, nir)
+    bb, sb, cb = predict(base.model, rgb, nir)
+    assert torch.equal(cd, cb)
+    assert (sd - sb).abs().max().item() <= 0.005
+    assert (bd - bb).abs().max().item() * 640 <= 0.5

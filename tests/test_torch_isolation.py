@@ -81,3 +81,21 @@ def test_trainer_raises_without_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(model)
     assert Trainer(model, device="cpu").device.type == "cpu"
+
+
+def test_measurement_entry_points_raise_without_cuda(monkeypatch):
+    """The bench, the summary and the stem split probe run on the card unless
+    asked for the CPU (BENCH_DEVICE=cpu, --device cpu)."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available here: the default device is usable")
+    from dcfa_yolo_tpu_torch import bench, summary
+    from dcfa_yolo_tpu_torch.tools import stem_split_probe
+
+    monkeypatch.delenv("BENCH_DEVICE", raising=False)
+    monkeypatch.setenv("BENCH_SIZE", "64")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench.run()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        stem_split_probe.main(["1", "--size", "32"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        summary.main(["--input-shape", "64", "64"])

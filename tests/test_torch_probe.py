@@ -1,0 +1,157 @@
+"""Port stem split probe (dcfa_yolo_tpu_torch/ops/cuda_stem_probe.py and
+dcfa_yolo_tpu_torch/tools/stem_split_probe.py) against the JAX probe
+`tools/stem_split_probe.call`, on the CPU: the Pallas kernels run in
+interpret mode (`pl.pallas_call` patched with `interpret=True`), the port's
+wrappers take their plain versions.
+
+Both sides get the same zero-bordered canvas of a seeded uint8 image pair
+and the same stem kernel and BN numbers, folded by each package's own
+function: `fold_stem_params_d` (the v3 contract) for JAX,
+`fold_stem_params` (the v4 contract) for the port.  Only the float32
+summation order then differs, so 'full' is held in the v4 class
+(tests/test_pallas_stem.py) and 'conv' against JAX 'dots' within one bf16
+step; 'pool' has no JAX counterpart with a meaning (its `vpu` value is an
+iota construct) and is held against a numpy evaluation of its own
+definition.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import tools.stem_split_probe as jprobe
+from dcfa_yolo_tpu.ops.pallas_stem import fold_stem_params_d
+from dcfa_yolo_tpu.ops.resize import deinterleave_cols_cf
+from dcfa_yolo_tpu_torch.ops import cuda_stem, cuda_stem_probe as csp
+from dcfa_yolo_tpu_torch.ops.cuda_stem import fold_stem_params
+from dcfa_yolo_tpu_torch.tools import stem_split_probe as probe
+
+torch.set_num_threads(1)
+
+B, S = 2, 32
+
+
+@pytest.fixture(scope="module")
+def stem_numbers():
+    rng = np.random.default_rng(3)
+    img = rng.integers(0, 256, (B, S, S, 3)).astype(np.float32)
+    kern = rng.normal(0, 0.1, (3, 3, 3, 16)).astype(np.float32)  # HWIO
+    gamma = (1 + 0.2 * rng.standard_normal(16)).astype(np.float32)
+    var = (rng.random(16) + 0.5).astype(np.float32)
+    # a zero BN shift, as in the JAX probe: the v3 contract keeps the bias in
+    # float32 and the v4 one rounds it to bf16, which alone would move 12%
+    # of the outputs by a bf16 step at these sizes
+    beta = mean = np.zeros(16, np.float32)
+    canvas = np.zeros((B, 3, S + 2, S + 2), np.float32)
+    canvas[:, :, 1:-1, 1:-1] = img.transpose(0, 3, 1, 2)
+    return canvas, kern, gamma, beta, mean, var
+
+
+@pytest.fixture(scope="module")
+def port_inputs(stem_numbers):
+    canvas, kern, *bn = stem_numbers
+    w, bias = fold_stem_params(torch.from_numpy(kern.transpose(3, 2, 0, 1)),
+                               *(torch.from_numpy(x) for x in bn))
+    return torch.from_numpy(canvas).to(torch.bfloat16), w, bias
+
+
+@pytest.fixture
+def jax_call(stem_numbers, monkeypatch):
+    """variant → the JAX probe's output in interpret mode, NHWC float32."""
+    monkeypatch.setattr(jprobe.pl, "pallas_call",
+                        functools.partial(jprobe.pl.pallas_call, interpret=True))
+    canvas, kern, *bn = stem_numbers
+    wd3, bias3 = fold_stem_params_d(jnp.asarray(kern), *(jnp.asarray(x) for x in bn))
+    x_cfd = deinterleave_cols_cf(jnp.asarray(canvas, jnp.bfloat16))
+
+    def call(variant):
+        out = np.asarray(jprobe.call(variant, S, x_cfd, wd3, bias3), np.float32)
+        return out.transpose(0, 1, 3, 2)  # (B, H/2, 16, W/2) → NHWC
+    return call
+
+
+@pytest.mark.parametrize("variant", ["full", "dblbuf", "pipe"])
+def test_full_plain_matches_jax(port_inputs, jax_call, variant):
+    mine = csp.PLAIN["full"](*port_inputs).float().numpy()
+    ref = jax_call(variant)
+    np.testing.assert_allclose(mine, ref, atol=0.03, rtol=0.02)
+    assert (mine == ref).mean() >= 0.999
+
+
+def test_conv_plain_matches_jax_dots(port_inputs, jax_call):
+    """The conv sample at (2i, 2j) against JAX 'dots' (its even-row,
+    even-column conv output), within one bf16 step of the larger value: the
+    f32 sums run in another order before the bf16 rounding."""
+    mine = csp.conv_plain(*port_inputs).float().numpy()
+    ref = jax_call("dots")
+    step = 2.0 ** (np.floor(np.log2(np.maximum(np.maximum(abs(mine), abs(ref)),
+                                                2.0 ** -126))) - 7)
+    assert np.all(np.abs(mine - ref) <= step)
+    assert np.abs(mine).max() > 0.5  # a live conv, not a row of zeros
+
+
+def _bf16_round(x: np.ndarray) -> np.ndarray:
+    """float32 → nearest bf16 (ties to even), as float32, in numpy."""
+    u = x.astype(np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def test_pool_plain_matches_its_definition(stem_numbers, port_inputs):
+    """relu(maxpool3x3 s2 pad 1 (-inf)(bf16(((c0 + c1) + c2) + bias[co]))),
+    c the canvas channels at (y+1, x+1), evaluated in numpy, bitwise."""
+    canvas, _, *_ = stem_numbers
+    bias = port_inputs[2].numpy()
+    c = canvas[:, :, 1:-1, 1:-1, None]
+    v = _bf16_round(((c[:, 0] + c[:, 1]) + c[:, 2]) + bias)  # (B, H, W, 16)
+    pad = np.full((B, S + 2, S + 2, 16), -np.inf, np.float32)
+    pad[:, 1:-1, 1:-1] = v
+    ref = np.full((B, S // 2, S // 2, 16), -np.inf, np.float32)
+    for dy in range(3):
+        for dx in range(3):
+            ref = np.maximum(ref, pad[:, dy:dy + S:2, dx:dx + S:2])
+    ref = np.maximum(ref, 0)
+    np.testing.assert_array_equal(csp.pool_plain(*port_inputs).float().numpy(), ref)
+
+
+@pytest.mark.parametrize("variant", csp.VARIANTS)
+def test_wrappers_take_plain_versions_on_cpu(port_inputs, variant):
+    before = (dict(csp.LAUNCHES), cuda_stem.LAUNCHES)
+    out = csp.stem_probe(variant, *port_inputs)
+    assert out.shape == (B, S // 2, S // 2, 16) and out.dtype == torch.bfloat16
+    assert torch.equal(out, csp.PLAIN[variant](*port_inputs))
+    assert (dict(csp.LAUNCHES), cuda_stem.LAUNCHES) == before
+    with pytest.raises(ValueError):
+        csp.stem_probe(variant, port_inputs[0][:, :, 1:], *port_inputs[1:])
+
+
+@pytest.mark.parametrize("variant", csp.VARIANTS)
+def test_variant_bound_counts_what_the_variant_moves(variant):
+    """At b16 640²: every variant reads the whole canvas and the bias and
+    writes the pooled shape once; all but pool read the weights too.  The
+    bytes bound every variant on the H100."""
+    canvas = torch.empty(16, 3, 642, 642, dtype=torch.bfloat16)
+    w, bias = torch.empty(16, 3, 3, 3, dtype=torch.bfloat16), torch.empty(16)
+    nbytes = 16 * 3 * 642 * 642 * 2 + 16 * 320 * 320 * 16 * 2 + 16 * 4
+    if variant != "pool":
+        nbytes += 16 * 27 * 2
+    ms, by = probe.variant_bound(variant, canvas, w, bias)
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / 3.35e12 * 1e3, rel=1e-12)
+
+
+def test_probe_entry_point_on_cpu(capsys):
+    assert probe.main(["2", "--size", "32", "--iters", "1", "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("device: cpu")
+    assert [ln.split(":")[0].strip() for ln in lines[1:6]] == list(csp.VARIANTS)
+    assert all("bit-identical to full: True" in ln for ln in lines[4:6])
+    assert lines[-1].startswith("split: (conv + pool) / full = ")
+    with pytest.raises(ValueError):
+        csp.stem_probe("dots", *probe.make_inputs(1, 32, "cpu"))
