@@ -1,9 +1,10 @@
 """Configuration: the port's own copy of `dcfa_yolo_tpu/config.py`'s
-`ModelConfig`, phi tables (`nets/yolo_mul.py:328-395` of the reference) and
-`TrainConfig` (`train_mul.py:22-110`).
+`ModelConfig`, phi tables (`nets/yolo_mul.py:328-395` of the reference),
+and `TrainConfig` (`train_mul.py:22-110`).
 
-Kept are the fields the serving path and the single-device train step
-read; `remat` and the data, eval and predict configs are not ported yet.
+Kept are the fields the serving path, the train step and the training CLI
+read; `remat` and the data, eval and predict configs are not ported: no
+code of the port reads them.
 """
 
 from __future__ import annotations
@@ -28,10 +29,12 @@ class ModelConfig:
     # and BN statistics always stay float32.
     compute_dtype: str = "float32"
     # Train-mode stem: "kernel" (the fused train-stem kernel,
-    # ops/cuda_stem_train.py; the JAX package's "pallas"), "plain" (conv,
-    # train-BN, ReLU and max pool as separate ops; its "xla") or "auto"
-    # (the kernel wherever it applies, ops/cuda_stem_train.py::resolve_train_stem).
-    # The parameter tree is the same for both.
+    # ops/cuda_stem_train.py, in bf16 or float32; the JAX package's
+    # "pallas"), "plain" (conv, train-BN, ReLU and max pool as separate ops;
+    # its "xla") or "auto" (the kernel wherever it applies: an sm_90 card,
+    # 16 stem channels and an even input shape,
+    # ops/cuda_stem_train.py::resolve_train_stem).  The parameter tree is
+    # the same for both.
     train_stem_backend: str = "auto"
 
     @property
@@ -75,9 +78,14 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Training recipe (`train_mul.py:22-110`, `nets/yolo_training.py`); the
-    fields the train step reads, with the JAX package's defaults."""
+    """Training recipe (`train_mul.py:22-110`, `nets/yolo_training.py`), with
+    the JAX package's defaults."""
 
+    seed: int = 11
+    init_epoch: int = 0
+    freeze_epoch: int = 0
+    unfreeze_epoch: int = 200
+    freeze_train: bool = False
     batch_size: int = 16
     optimizer_type: str = "sgd"  # "sgd" | "adam"
     init_lr: float = 1e-2
@@ -85,6 +93,7 @@ class TrainConfig:
     momentum: float = 0.937
     nesterov: bool = True
     weight_decay: float = 5e-4
+    lr_decay_type: str = "cos"  # "cos" | "step"
     grad_clip_norm: float = 10.0
     ema_decay: float = 0.9999
     ema_tau: float = 2000.0
@@ -98,6 +107,16 @@ class TrainConfig:
     assigner_beta: float = 6.0
     # fixed per-image padding of the ground-truth boxes
     max_boxes: int = 64
+    # augmentation (`train_mul.py:55-63`)
+    mosaic: bool = True
+    mosaic_prob: float = 0.5
+    mixup: bool = True
+    mixup_prob: float = 0.5
+    special_aug_ratio: float = 0.7
+    # checkpoint and eval cadence (`train_mul.py:95-105`)
+    save_period: int = 20
+    eval_period: int = 20
+    save_dir: str = "logs"
 
     def scaled_lrs(self, batch_size: Optional[int] = None) -> Tuple[float, float]:
         """lr scaling by batch/64 with clamps (`train_mul.py:240-244`)."""
@@ -111,3 +130,4 @@ class TrainConfig:
             lr_limit_max * 1e-2,
         )
         return init_lr_fit, min_lr_fit
+

@@ -1,13 +1,14 @@
-"""User-facing detection facade (`dcfa_yolo_tpu/infer/predictor.py:42-268`):
+"""User-facing detection facade (`dcfa_yolo_tpu/infer/predictor.py:42-346`):
 construction (train or deploy graph, folded shuffles, pre-cast kernels),
-`detect`, `detect_batch`, `get_fps` and the NMS cap counters.  Drawing,
-heatmaps, map-txt output and checkpoint loading are not ported yet
-(ROADMAP.md)."""
+`detect`, `detect_batch`, `get_fps`, the NMS cap counters and the mAP
+protocol's detection files (`get_map_txt`, `get_map_txt_batch`).  Drawing,
+heatmaps and checkpoint loading by path are not ported yet (ROADMAP.md)."""
 
 from __future__ import annotations
 
+import os
 import time
-from typing import Mapping, Optional, Sequence, Tuple
+from typing import List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -18,6 +19,13 @@ from dcfa_yolo_tpu_torch.infer.pipeline import detect_batch
 from dcfa_yolo_tpu_torch.models.convert import from_jax_variables
 from dcfa_yolo_tpu_torch.models.reparam import cast_model_conv_kernels
 from dcfa_yolo_tpu_torch.models.yolo import _DTYPES, DCFAYolo, init_model
+
+
+def get_classes(classes_path: str) -> Tuple[List[str], int]:
+    """Read class names, one per line (`utils/utils.py:42-46`)."""
+    with open(classes_path, encoding="utf-8") as f:
+        names = [c.strip() for c in f.readlines()]
+    return names, len(names)
 
 
 def pil_to_rgb_array(image) -> np.ndarray:
@@ -35,7 +43,9 @@ class YOLOPredictor:
     Weights come from `variables` (a flax `{"params", "batch_stats"}` tree
     of arrays, carried by `models/convert.py`, that must match the chosen
     graph: the output of the JAX `deploy_variables` for deploy=True, of
-    `fold_shuffle_variables` for fold_shuffle=True) or, without them, from
+    `fold_shuffle_variables` for fold_shuffle=True), from `state_dict` (the
+    port's own, for the chosen graph: the training CLI passes its folded
+    EMA weights) or, without either, from
     `init_model(cfg, seed, deploy=..., fold_shuffle=...)`, which makes
     train-graph weights and transforms them.  cast_weights pre-casts the
     conv kernels to the compute dtype (`models/reparam.py::cast_model_conv_kernels`),
@@ -46,7 +56,8 @@ class YOLOPredictor:
                  phi: str = "n", confidence: float = 0.5,
                  nms_iou: float = 0.3, max_det: int = 300,
                  pre_nms_topk: int = 1024, compute_dtype: str = "float32",
-                 variables: Optional[Mapping] = None, seed: int = 0,
+                 variables: Optional[Mapping] = None,
+                 state_dict: Optional[Mapping[str, torch.Tensor]] = None, seed: int = 0,
                  nms: str = "auto", stem: str = "auto", device="cuda",
                  deploy: bool = False, fold_shuffle: bool = False,
                  cast_weights: bool = False):
@@ -62,9 +73,10 @@ class YOLOPredictor:
         self.cfg = ModelConfig(num_classes=self.num_classes, phi=phi,
                                input_shape=tuple(input_shape),
                                compute_dtype=compute_dtype)
-        if variables is not None:
+        if variables is not None or state_dict is not None:
             model = DCFAYolo(self.cfg, deploy=deploy, fold_shuffle=fold_shuffle)
-            model.load_state_dict(from_jax_variables(variables), strict=True)
+            model.load_state_dict(from_jax_variables(variables) if state_dict is None
+                                  else state_dict, strict=True)
         else:
             model = init_model(self.cfg, seed, "cpu", deploy=deploy,
                                fold_shuffle=fold_shuffle)
@@ -136,3 +148,40 @@ class YOLOPredictor:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         return (time.perf_counter() - t0) / test_interval
+
+    # ------------------------------------------------------------------
+    def get_map_txt(self, image_id: str, image_rgb, image_nir,
+                    class_names: Sequence[str], map_out_path: str,
+                    confidence: Optional[float] = None) -> None:
+        """Write `detection-results/{id}.txt` lines `cls score x1 y1 x2 y2`
+        (`yolo_mul.py:213-257`)."""
+        boxes, scores, labels = self.detect(image_rgb, image_nir, confidence=confidence)
+        self._write_map_txt(image_id, boxes, scores, labels, class_names,
+                            map_out_path)
+
+    def get_map_txt_batch(self, image_ids: Sequence[str], rgb_images,
+                          nir_images, class_names: Sequence[str],
+                          map_out_path: str,
+                          confidence: Optional[float] = None) -> None:
+        """Batched `get_map_txt`: one pipeline call for a stack of same-sized
+        pairs, the same txt lines."""
+        dets = self.detect_batch(rgb_images, nir_images, confidence=confidence)
+        for image_id, (boxes, scores, labels) in zip(image_ids, dets):
+            self._write_map_txt(image_id, boxes, scores, labels, class_names,
+                                map_out_path)
+
+    def _write_map_txt(self, image_id, boxes, scores, labels, class_names,
+                       map_out_path) -> None:
+        """The JAX package's line format (`predictor.py:335-346`): the score
+        as `str(float32)[:6]`, box corners truncated by `int()`, boxes
+        stored yxyx."""
+        os.makedirs(os.path.join(map_out_path, "detection-results"), exist_ok=True)
+        with open(os.path.join(map_out_path, "detection-results", image_id + ".txt"),
+                  "w", encoding="utf-8") as f:
+            for box, score, c in zip(boxes, scores, labels):
+                name = self.class_names[int(c)]
+                if name not in class_names:
+                    continue
+                top, left, bottom, right = box
+                f.write(f"{name} {str(score)[:6]} {int(left)} {int(top)} "
+                        f"{int(right)} {int(bottom)}\n")

@@ -121,6 +121,17 @@ def apply_shuffle_spec(sd: StateDict, spec: Spec, inverse: bool = False
     return out
 
 
+def fold_opt_state(opt_state: Dict, spec: Spec, inverse: bool = False) -> Dict:
+    """Fold (or unfold) an optimizer state with a `shuffle_fold_spec`
+    (`reparam.py:216-238`): every dict keyed by parameter name (SGD's
+    `trace`, Adam's `mu` and `nu`) is permuted like the parameters; scalars
+    (Adam's `count`) pass through.  The update is elementwise and the clip's
+    global norm permutation-invariant, so training folded with folded
+    moments is the unfolded trajectory, permuted."""
+    return {k: apply_shuffle_spec(v, spec, inverse) if isinstance(v, dict) else v
+            for k, v in opt_state.items()}
+
+
 def fold_shuffle_state_dict(sd: StateDict) -> StateDict:
     """Absorb the backbones' channel shuffles into the consumers' weights
     (`fold_shuffle_variables`, `reparam.py:163-194`), for

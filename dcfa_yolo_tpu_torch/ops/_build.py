@@ -94,8 +94,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.nms_suppress.restype = i
     lib.stem_train_num_ctas.argtypes = [i, i, i]
     lib.stem_train_num_ctas.restype = i
-    lib.stem_train_bf16.argtypes = [p, p, p, p, p, i, i, i, p]
-    lib.stem_train_bf16.restype = i
+    for fn in (lib.stem_train_bf16, lib.stem_train_f32):
+        fn.argtypes = [p, p, p, p, p, i, i, i, p]
+        fn.restype = i
     lib.stem_probe_bf16.argtypes = [i, p, p, p, p, i, i, i, p]
     lib.stem_probe_bf16.restype = i
     lib.dcfa_error_string.argtypes = [i]

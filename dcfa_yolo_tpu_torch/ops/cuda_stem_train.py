@@ -2,16 +2,19 @@
 maxpool3x3 s2, with the full-resolution pass in one hand-written CUDA kernel
 (`csrc/stem_train.cu`, kernel C).
 
-Port of `dcfa_yolo_tpu/ops/pallas_stem_train.py` (`fused_train_stem`).  The
-kernel reads the NHWC input once and emits max pool, min pool and the
-per-channel Σĉ, Σĉ² of the conv output ĉ rounded to the compute dtype.  The
+Port of `dcfa_yolo_tpu/ops/pallas_stem_train.py` (`fused_train_stem`), in
+both of its compute dtypes (one CUDA template, C entries `stem_train_bf16`
+and `stem_train_f32`).  The kernel reads the NHWC input once and emits max
+pool, min pool and the per-channel Σĉ, Σĉ² of the conv output ĉ in the
+compute dtype (rounded to bf16 in bf16, unrounded in float32).  The
 BN affine a·ĉ + b commutes with the pools up to the sign of a, so BN and
 ReLU run at pool resolution on the max or the min pool by sign(γ)
 (`_fused_fwd_impl`, `pallas_stem_train.py:296-325`).
 
 `stem_train` launches the kernel for a CUDA tensor and uses the plain
 version `stem_train_plain` only for a CPU tensor; `LAUNCHES` counts kernel
-launches.  `fused_train_stem` is the differentiable function; its backward
+launches of both dtypes, `LAUNCHES_F32` those in float32.
+`fused_train_stem` is the differentiable function; its backward
 differentiates the plain decomposition `reference_stem`, as the JAX VJP does
 (`pallas_stem_train.py:328-337`): the TPU kernel has no backward kernel.
 """
@@ -27,7 +30,9 @@ from dcfa_yolo_tpu_torch.ops import _build
 from dcfa_yolo_tpu_torch.ops.norm import batch_moments
 
 STEM_CO = 16  # the kernel is specialised to phi='n''s 16 stem channels
-LAUNCHES = 0
+LAUNCHES = 0      # kernel launches, both dtypes
+LAUNCHES_F32 = 0  # of which float32
+_ENTRIES = {torch.bfloat16: "stem_train_bf16", torch.float32: "stem_train_f32"}
 
 
 def resolve_train_stem(backend: str, c_out: int, hw: Tuple[int, int],
@@ -35,17 +40,16 @@ def resolve_train_stem(backend: str, c_out: int, hw: Tuple[int, int],
     """'kernel' or 'plain' for the train-mode stem.
 
     'auto' picks the kernel on a CUDA sm_90 device wherever it applies: 16
-    stem channels, even H and W and bf16 compute (the kernel is bf16 only;
-    in float32 the plain graph keeps float32, as the eval resolver of
-    `infer/pipeline.py` does).  An explicit 'kernel' that cannot be met
-    raises; on a CPU tensor the kernel's wrapper takes its plain version.
+    stem channels, even H and W, and bf16 or float32 compute (the kernel's
+    two instantiations).  An explicit 'kernel' that cannot be met raises; on
+    a CPU tensor the kernel's wrapper takes its plain version.
     """
     shape_ok = c_out == STEM_CO and hw[0] % 2 == 0 and hw[1] % 2 == 0
     on_card = (device.type == "cuda"
                and torch.cuda.get_device_capability(device) == (9, 0))
+    dtype_ok = dtype in _ENTRIES
     if backend == "auto":
-        return ("kernel" if shape_ok and on_card and dtype == torch.bfloat16
-                else "plain")
+        return "kernel" if shape_ok and on_card and dtype_ok else "plain"
     if backend == "plain":
         return "plain"
     if backend != "kernel":
@@ -53,9 +57,9 @@ def resolve_train_stem(backend: str, c_out: int, hw: Tuple[int, int],
     if not shape_ok:
         raise ValueError(f"the train stem kernel needs {STEM_CO} channels and "
                          f"an even input shape, got {c_out} and {tuple(hw)}")
-    if device.type == "cuda" and not (on_card and dtype == torch.bfloat16):
+    if not dtype_ok or (device.type == "cuda" and not on_card):
         raise ValueError("the train stem kernel needs an sm_90 card and bf16 "
-                         f"compute, got {device} and {dtype}")
+                         f"or float32 compute, got {device} and {dtype}")
     return "kernel"
 
 
@@ -65,7 +69,8 @@ def stem_train_plain(x: torch.Tensor, weight: torch.Tensor
     (16, 3, 3, 3) in x's dtype → (pmax, pmin (B, H/2, W/2, 16) in x's dtype,
     sums (16, 2) float32 [Σĉ, Σĉ²]).  The conv runs in float32 over the
     operands (bf16 products are exact in float32) and ĉ is rounded to x's
-    dtype before the pools and the sums.  On the card it needs TF32 off."""
+    dtype before the pools and the sums (a no-op in float32).  On the card
+    it needs TF32 off."""
     c = F.conv2d(x.permute(0, 3, 1, 2).float(), weight.float(), padding=1)
     c = c.to(x.dtype)
     pmax = F.max_pool2d(c, 3, 2, 1)
@@ -79,10 +84,10 @@ def stem_train_plain(x: torch.Tensor, weight: torch.Tensor
 def stem_train(x: torch.Tensor, weight: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel C on the NHWC input: (pmax, pmin, sums) as `stem_train_plain`
-    returns them.  Launches the CUDA kernel for a CUDA tensor; a CPU tensor
-    takes `stem_train_plain`.  The per-CTA partial sums are reduced here in
-    a fixed order."""
-    global LAUNCHES
+    returns them.  Launches the CUDA kernel for a bf16 or float32 CUDA
+    tensor; a CPU tensor takes `stem_train_plain`.  The per-CTA partial sums
+    are reduced here in a fixed order."""
+    global LAUNCHES, LAUNCHES_F32
     if x.dim() != 4 or x.shape[3] != 3:
         raise ValueError(f"x must be (B, H, W, 3), got {tuple(x.shape)}")
     b, h, w, _ = x.shape
@@ -95,12 +100,13 @@ def stem_train(x: torch.Tensor, weight: torch.Tensor
         return stem_train_plain(x, weight)
     if x.device.type != "cuda":
         raise ValueError(f"stem_train runs on CUDA or CPU, got {x.device}")
+    if x.dtype not in _ENTRIES:
+        raise ValueError(f"the train stem kernel takes bf16 or float32, got {x.dtype}")
     for name, t in (("x", x), ("weight", weight)):
-        if (t.device != x.device or t.dtype != torch.bfloat16
-                or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous bf16 tensor on "
+        if t.device != x.device or t.dtype != x.dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {x.dtype} tensor on "
                              f"{x.device}, got {t.dtype} on {t.device}")
-    pmax = torch.empty((b, h // 2, w // 2, STEM_CO), dtype=torch.bfloat16,
+    pmax = torch.empty((b, h // 2, w // 2, STEM_CO), dtype=x.dtype,
                        device=x.device)
     pmin = torch.empty_like(pmax)
     if b == 0:
@@ -109,11 +115,14 @@ def stem_train(x: torch.Tensor, weight: torch.Tensor
     n_cta = lib.stem_train_num_ctas(b, h, w)
     partials = torch.empty((n_cta, STEM_CO, 2), dtype=torch.float32,
                            device=x.device)
-    rc = lib.stem_train_bf16(x.data_ptr(), weight.data_ptr(), pmax.data_ptr(),
-                             pmin.data_ptr(), partials.data_ptr(), b, h, w,
-                             torch.cuda.current_stream(x.device).cuda_stream)
+    rc = getattr(lib, _ENTRIES[x.dtype])(
+        x.data_ptr(), weight.data_ptr(), pmax.data_ptr(), pmin.data_ptr(),
+        partials.data_ptr(), b, h, w,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "stem_train")
     LAUNCHES += 1
+    if x.dtype == torch.float32:
+        LAUNCHES_F32 += 1
     return pmax, pmin, partials.sum(dim=0)
 
 

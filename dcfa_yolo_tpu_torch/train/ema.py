@@ -43,3 +43,11 @@ class ModelEMA:
         live = [sd[k].float() for k in self.variables]
         torch._foreach_mul_(ema, d)
         torch._foreach_add_(ema, torch._foreach_mul(live, one_minus_d))
+
+    @torch.no_grad()
+    def load(self, variables: Dict[str, torch.Tensor], updates: int) -> None:
+        """Restore the averaged entries and the update counter (exact
+        resume)."""
+        for k, v in self.variables.items():
+            v.copy_(variables[k])
+        self.updates = int(updates)

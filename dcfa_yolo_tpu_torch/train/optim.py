@@ -4,11 +4,11 @@ its flat tail `train/flat_opt.py`), as multi-tensor `torch._foreach_*` ops.
 The reference's three param groups (`train_mul.py:246-259`): weight decay
 on conv kernels only (4-D `weight`s), none on BN weights, biases or
 `bi_fpn.w`.  The reference never optimizes `bi_fpn.w`; the JAX package
-trains it by default (`train_bifpn`), and the port always does.  The chain,
-in optax's order:
+trains it by default, and `train_bifpn=False` (the CLI's `--frozen-bifpn`)
+zeroes its update as `optim.py:81-82` does.  The chain, in optax's order:
 
     clip_by_global_norm → coupled weight decay → nesterov trace | Adam
-    → p ← p − lr·update
+    → [bi_fpn update zeroed] → p ← p − lr·update
 
 Clipping uses optax's formula, `(g / norm) · max_norm` when norm ≥ max_norm
 (`clip_grad_norm_` would add 1e-6).  In the freeze phase the backbones'
@@ -35,6 +35,11 @@ def decays(name: str, p: torch.Tensor) -> bool:
     return name.rsplit(".", 1)[-1] == "weight" and p.dim() == 4
 
 
+def bifpn(name: str) -> bool:
+    """The BiFPN fusion weights (`optim.py:55-57`)."""
+    return "bi_fpn" in name.split(".")
+
+
 def frozen(name: str) -> bool:
     """Inside one of the two modal backbones (`Freeze_Train`,
     `train_mul.py:231-237`)."""
@@ -45,7 +50,8 @@ class Optimizer:
     """SGD with nesterov momentum or Adam over named float32 parameters."""
 
     def __init__(self, cfg: TrainConfig,
-                 named_params: Sequence[Tuple[str, torch.Tensor]]):
+                 named_params: Sequence[Tuple[str, torch.Tensor]],
+                 train_bifpn: bool = True):
         if cfg.optimizer_type not in ("sgd", "adam"):
             raise ValueError(cfg.optimizer_type)
         self.cfg = cfg
@@ -53,6 +59,7 @@ class Optimizer:
         self.params = [p for _, p in named_params]
         self.decay = [decays(n, p) for n, p in named_params]
         self.frozen = [frozen(n) for n in self.names]
+        self.applied = [train_bifpn or not bifpn(n) for n in self.names]
         zeros = lambda: [torch.zeros_like(p) for p in self.params]
         if cfg.optimizer_type == "sgd":
             self.trace = zeros()
@@ -66,6 +73,16 @@ class Optimizer:
             return {"trace": dict(zip(self.names, self.trace))}
         return {"count": self.count, "mu": dict(zip(self.names, self.mu)),
                 "nu": dict(zip(self.names, self.nu))}
+
+    @torch.no_grad()
+    def load_state(self, state: Dict) -> None:
+        """Restore a `state()` (exact resume): copies into the slots."""
+        if self.cfg.optimizer_type == "adam":
+            self.count = int(state["count"])
+        for key, slot in zip(("trace",) if self.cfg.optimizer_type == "sgd"
+                             else ("mu", "nu"), self._slots()):
+            for name, t in zip(self.names, slot):
+                t.copy_(state[key][name])
 
     def _slots(self) -> List[List[torch.Tensor]]:
         return [self.trace] if self.cfg.optimizer_type == "sgd" else [self.mu, self.nu]
@@ -117,4 +134,6 @@ class Optimizer:
             den = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
             torch._foreach_add_(den, ADAM_EPS)
             upd = torch._foreach_div(torch._foreach_div(mu, bc1), den)
-        torch._foreach_sub_(p, torch._foreach_mul(upd, lr))
+        on = [j for j, i in enumerate(live) if self.applied[i]]
+        torch._foreach_sub_([p[j] for j in on],
+                            torch._foreach_mul([upd[j] for j in on], lr))

@@ -4,7 +4,8 @@
 One step: train-mode forward (BatchNorm on the batch, running statistics
 updated), loss, backward, optimizer, EMA.  `eval_step` computes the loss on
 the EMA weights in eval mode.  The step is split into `forward`, `loss`,
-`backward` and `update` so a caller can time its stages.
+`backward` and `update` so a caller can time its stages.  `state` reads and
+restores the whole training state (exact resume, `train.py:362-384`).
 """
 
 from __future__ import annotations
@@ -45,11 +46,13 @@ class Trainer:
 
     `train_stem` is the stem graph the steps run ('kernel' or 'plain').
     When 'auto' leaves a CUDA device on the plain graph (kernel C needs an
-    sm_90 card, bf16 compute, 16 stem channels and an even input shape),
-    the trainer says so once, with a warning."""
+    sm_90 card, 16 stem channels and an even input shape), the trainer says
+    so once, with a warning.  `ema_updates` starts the EMA's ramp (a resumed
+    or late-started run); `train_bifpn=False` leaves the BiFPN fusion
+    weights untrained, as the reference does (`--frozen-bifpn`)."""
 
     def __init__(self, model: DCFAYolo, train_cfg: TrainConfig = TrainConfig(),
-                 device="cuda"):
+                 device="cuda", ema_updates: int = 0, train_bifpn: bool = True):
         self.device = resolve_device(device)
         self.model = model.to(self.device).train()
         self.cfg = model.cfg
@@ -58,13 +61,13 @@ class Trainer:
                 and self.cfg.train_stem_backend == "auto"):
             warnings.warn(
                 f"train stem 'auto' runs the plain graph on {self.device} "
-                f"({self.cfg.compute_dtype}, input {self.cfg.input_shape}): "
-                "no train-stem kernel is launched", stacklevel=2)
+                f"(input {self.cfg.input_shape}): no train-stem kernel is "
+                "launched", stacklevel=2)
         self.tc = train_cfg
         self.criterion = YoloLoss(self.cfg, train_cfg, self.device)
         self._named = list(self.model.named_parameters())
-        self.optimizer = Optimizer(train_cfg, self._named)
-        self.ema = ModelEMA(self.model)
+        self.optimizer = Optimizer(train_cfg, self._named, train_bifpn)
+        self.ema = ModelEMA(self.model, ema_updates)
         self._eval_model = copy.deepcopy(self.model).eval()
         for p in self._eval_model.parameters():
             p.requires_grad_(False)
@@ -121,6 +124,23 @@ class Trainer:
         stats = {k: v for k, v in sd.items() if k not in params}
         return TrainState(params, stats, self.optimizer.state(),
                           self.ema.variables, self.ema.updates)
+
+    @state.setter
+    def state(self, st: TrainState) -> None:
+        """Copy a saved state into the live model, optimizer and EMA."""
+        params = dict(self._named)
+        buffers = dict(self.model.named_buffers())
+        for have, got, what in ((params, st.params, "params"),
+                                (buffers, st.batch_stats, "batch_stats")):
+            if set(have) != set(got):
+                raise KeyError(f"{what} do not match the model: missing "
+                               f"{sorted(set(have) - set(got))[:3]}, unexpected "
+                               f"{sorted(set(got) - set(have))[:3]}")
+            with torch.no_grad():
+                for name, t in have.items():
+                    t.copy_(got[name])
+        self.optimizer.load_state(st.opt_state)
+        self.ema.load(st.ema, st.ema_updates)
 
     def ema_variables(self) -> Dict[str, torch.Tensor]:
         """EMA of the parameters and the BN running statistics, by

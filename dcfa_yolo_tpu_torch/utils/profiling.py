@@ -1,11 +1,13 @@
 """Timing utilities of the port (`dcfa_yolo_tpu/utils/profiling.py`): the
-H100's peaks and the bound they give, a device timer and the bench's
-steady-state timer."""
+H100's peaks and the bound they give, a device timer, the bench's
+steady-state timer, the training CLI's `StepTimer` and `trace`."""
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
-from typing import Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -21,6 +23,77 @@ def bound(nbytes: float, ops: float, peak: float) -> Tuple[float, str]:
     and which one it is ("bytes" or "operations")."""
     t_b, t_o = nbytes / H100_BYTES_PER_S, ops / peak
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str], device="cuda") -> Iterator[None]:
+    """Record a `torch.profiler` trace (CPU, and CUDA on a CUDA device) of
+    the block into `log_dir/trace.json` (a no-op when log_dir is empty).
+    The block's device work is waited for before the trace ends."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        try:
+            yield
+        finally:
+            _sync(device)
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+class StepTimer:
+    """Mean and percentiles of step times.  On a CUDA device `start` and
+    `stop` record CUDA events on the current stream and never wait: a
+    sample is the stream's time from one event to the other, read in
+    `summary` after one synchronise, so the host goes on feeding the card
+    while it works.  On the CPU a sample is the host clock around the
+    step."""
+
+    def __init__(self, device="cuda") -> None:
+        self.cuda = torch.device(device).type == "cuda"
+        self.samples: List[float] = []
+        self._events: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
+        self._t0 = None
+
+    def start(self) -> None:
+        if self.cuda:
+            self._t0 = torch.cuda.Event(enable_timing=True)
+            self._t0.record()
+        else:
+            self._t0 = time.perf_counter()
+
+    def stop(self) -> None:
+        if self._t0 is None:
+            return
+        if self.cuda:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self._events.append((self._t0, end))
+        else:
+            self.samples.append(time.perf_counter() - self._t0)
+        self._t0 = None
+
+    def summary(self) -> Dict[str, float]:
+        if self._events:
+            self._events[-1][1].synchronize()
+            self.samples += [a.elapsed_time(b) / 1e3 for a, b in self._events]
+            self._events = []
+        if not self.samples:
+            return {}
+        xs = sorted(self.samples)
+        n = len(xs)
+        return {
+            "mean_ms": 1000 * sum(xs) / n,
+            "p50_ms": 1000 * xs[n // 2],
+            "p95_ms": 1000 * xs[min(n - 1, int(n * 0.95))],
+            "steps": n,
+        }
 
 
 def _sync(device) -> None:

@@ -101,6 +101,31 @@ def test_train_stem_kernel_matches_plain(cuda, shape):
                                atol=1e-3 * rsums.abs().max().item())
 
 
+@pytest.mark.parametrize("shape", [(2, 64, 130), (16, 640, 640), (3, 30, 18)])
+def test_train_stem_f32_kernel_matches_plain(cuda, shape):
+    """Kernel C's float32 instantiation against stem_train_plain: only the
+    conv's f32 summation order differs, so the pools agree within 1e-5 of
+    max|ĉ| plus 1e-5 relative and the sums within 1e-4 relative; the launch
+    is counted in LAUNCHES and LAUNCHES_F32."""
+    b, h, w = shape
+    rng = np.random.default_rng(h * w + 1)
+    x = torch.from_numpy(rng.random((b, h, w, 3), np.float32)).to(cuda)
+    k = torch.from_numpy((rng.standard_normal((16, 3, 3, 3)) * 0.3).astype(np.float32)).to(cuda)
+    before = (cuda_stem_train.LAUNCHES, cuda_stem_train.LAUNCHES_F32)
+    pmax, pmin, sums = cuda_stem_train.stem_train(x, k)
+    torch.cuda.synchronize()
+    assert (cuda_stem_train.LAUNCHES, cuda_stem_train.LAUNCHES_F32) == (
+        before[0] + 1, before[1] + 1)
+    assert pmax.dtype == pmin.dtype == torch.float32
+    rmax, rmin, rsums = cuda_stem_train.stem_train_plain(x, k)
+    c_max = max(rmax.abs().max().item(), rmin.abs().max().item())
+    for got, ref in ((pmax, rmax), (pmin, rmin)):
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=1e-5,
+                                   atol=1e-5 * c_max)
+    np.testing.assert_allclose(sums.cpu().numpy(), rsums.cpu().numpy(), rtol=1e-4,
+                               atol=1e-4 * rsums.abs().max().item())
+
+
 def _probe_inputs(cuda, b, h, w):
     """A random uint8 canvas with its zero border and fold_stem_params
     weights of a random stem, on the card."""

@@ -99,3 +99,35 @@ def test_measurement_entry_points_raise_without_cuda(monkeypatch):
         stem_split_probe.main(["1", "--size", "32"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         summary.main(["--input-shape", "64", "64"])
+
+
+def test_walk_covers_the_training_cli_modules():
+    """The import probe above walks every module of the package, the host
+    data path, the mAP harness, the utilities, the tools and the training
+    CLI's `__main__` included."""
+    names = {m.name for m in pkgutil.walk_packages(dcfa_yolo_tpu_torch.__path__,
+                                                   "dcfa_yolo_tpu_torch.")}
+    for name in ("data.augment", "data.loader", "data.voc",
+                 "evalmap.voc_map", "evalmap.coco_map", "utils.callbacks",
+                 "utils.checkpoint", "utils.profiling", "tools.make_synth_dataset",
+                 "tools.loader_bench",
+                 "train.__main__"):
+        assert f"dcfa_yolo_tpu_torch.{name}" in names
+
+
+def test_training_cli_raises_without_cuda(tmp_path):
+    """`python -m dcfa_yolo_tpu_torch.train` runs on the card unless
+    `--device cpu` is passed; without a card it fails, in a fresh process
+    and in-process."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available here: the default device is usable")
+    proc = subprocess.run([sys.executable, "-m", "dcfa_yolo_tpu_torch.train",
+                           "--save-dir", str(tmp_path)], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    from dcfa_yolo_tpu_torch.train.__main__ import run
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run(["--save-dir", str(tmp_path)])
+    assert not any(tmp_path.iterdir())

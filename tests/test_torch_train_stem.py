@@ -70,6 +70,22 @@ def test_forward_matches_jax_f32():
         np.testing.assert_allclose(port.numpy(), np.asarray(ref), atol=1e-5)
 
 
+@pytest.mark.parametrize("seed", [6, 7])
+def test_f32_at_the_jax_suite_tolerances(seed):
+    """float32, the configuration of the training CLI's float32 kernel: the
+    port's fused stem (its plain version on the CPU) against JAX
+    `fused_train_stem` in interpret mode at tests/test_train_stem.py's own
+    tolerances (y rtol/atol 1e-5, mean atol 1e-6, var atol 1e-5)."""
+    x, k, gamma, beta = _data(seed)
+    y_j, m_j, v_j = jax_fused(jnp.asarray(x), jnp.asarray(k), jnp.asarray(gamma),
+                              jnp.asarray(beta), EPS, None, True)
+    y, m, v = fused_train_stem(*_port_args(x, k, gamma, beta), EPS)
+    assert y.dtype == torch.float32
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(m.numpy(), np.asarray(m_j), atol=1e-6)
+    np.testing.assert_allclose(v.numpy(), np.asarray(v_j), atol=1e-5)
+
+
 def test_plain_pools_and_sums_match_the_decomposition():
     """stem_train's outputs are what the affine needs: the max and min pools
     of ĉ and its sums, here against the JAX reference conv."""
@@ -174,7 +190,7 @@ def test_module_matches_jax_pallas_module(backend):
                                    atol=1e-4 * np.abs(ref).max())
 
 
-def test_resolver():
+def test_resolver(monkeypatch):
     cpu = torch.device("cpu")
     resolve = cuda_stem_train.resolve_train_stem
     assert resolve("auto", 16, (64, 64), torch.bfloat16, cpu) == "plain"
@@ -186,6 +202,19 @@ def test_resolver():
         resolve("kernel", 16, (64, 63), torch.bfloat16, cpu)
     with pytest.raises(ValueError):
         resolve("pallas", 16, (64, 64), torch.bfloat16, cpu)
+    # on an sm_90 card 'auto' picks kernel C in both compute dtypes
+    card = torch.device("cuda")
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda device=None: (9, 0))
+    for dtype in (torch.bfloat16, torch.float32):
+        assert resolve("auto", 16, (640, 640), dtype, card) == "kernel"
+        assert resolve("kernel", 16, (640, 640), dtype, card) == "kernel"
+        assert resolve("auto", 16, (640, 642 - 1), dtype, card) == "plain"
+    assert resolve("auto", 16, (640, 640), torch.float16, card) == "plain"
+    # elsewhere it keeps the plain graph, and an explicit request raises
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda device=None: (8, 0))
+    assert resolve("auto", 16, (640, 640), torch.float32, card) == "plain"
+    with pytest.raises(ValueError):
+        resolve("kernel", 16, (640, 640), torch.float32, card)
 
 
 @pytest.mark.parametrize("backend,route", [("auto", "plain"), ("kernel", "kernel"),
