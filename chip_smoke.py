@@ -35,6 +35,10 @@ import torch
 
 SEED = 0
 CARD = "?"  # nvidia-smi's name and power limit, set by phase_device
+# the shapes (B, H, W) where kernels A and C's persistent tile walk can go
+# wrong: b1 and b3, 320² and 1280², tiles that do not divide the image
+EDGE_SHAPES = [(1, 640, 640), (3, 640, 640), (1, 320, 320), (3, 320, 320),
+               (1, 1280, 1280), (2, 64, 130), (3, 30, 18), (1, 66, 66)]
 
 
 class CheckFailed(Exception):
@@ -80,6 +84,17 @@ def phase_build():
                 stack = line.strip()
             elif "Used" in line:
                 print(f"[build] {name} {fn}: {line.split(':', 1)[1].strip()}; {stack}")
+    # kernels A and C as the card reports them (the persistent grid's size
+    # comes from resident_ctas): at most 128 registers and no stack, so
+    # that two 256-thread CTAs fit an SM
+    for name in _build.STEM_KERNELS:
+        info = _build.stem_kernel_info(name, torch.device("cuda"))
+        print(f"[build] {name}: {info['registers']} registers, {info['stack_bytes']} B "
+              f"stack, {info['static_smem']} B static + {info['dynamic_smem']} B dynamic "
+              f"shared memory, {info['resident_ctas']} CTAs resident")
+        check(info["registers"] <= 128 and info["stack_bytes"] == 0,
+              f"{name} needs {info['registers']} registers and {info['stack_bytes']} B "
+              f"of stack (at most 128, none)")
 
 
 def serve_inputs(b, seed):
@@ -98,8 +113,10 @@ def stem_library(canvas, w, bias):
 
 
 def phase_stem(model, dev):
-    """Kernel A vs stem_eval_plain at the serving path's shape (b8 640²,
-    the letterboxed canvas of 480×640 pairs, weights of the served model)."""
+    """Kernel A vs stem_eval_plain (v4 class) at the edge shapes of its
+    persistent tile walk, then at the serving path's shapes (b8 and b1 640²,
+    the letterboxed canvas of 480×640 pairs, weights of the served model),
+    where it is timed beside its plain version and cuDNN."""
     from dcfa_yolo_tpu_torch.ops import cuda_stem
     from dcfa_yolo_tpu_torch.ops.resize import letterbox_batch_cf
     from dcfa_yolo_tpu_torch.utils.profiling import H100_BF16_FLOPS, bound, device_ms
@@ -107,11 +124,7 @@ def phase_stem(model, dev):
     st = model.backbone_rgb.stem
     w, bias = cuda_stem.fold_stem_params(st.conv.weight, st.bn.weight, st.bn.bias,
                                          st.bn.running_mean, st.bn.running_var)
-    res = {}
-    for b in (8, 1):
-        rgb, _ = serve_inputs(b, SEED + 1)
-        canvas = letterbox_batch_cf(torch.from_numpy(rgb).to(dev), (640, 640))
-        canvas = canvas.to(torch.bfloat16).contiguous()
+    def held(canvas, what):
         out = cuda_stem.stem_eval(canvas, w, bias)
         torch.cuda.synchronize()
         ref = cuda_stem.stem_eval_plain(canvas, w, bias)
@@ -119,9 +132,26 @@ def phase_stem(model, dev):
         err = (o - r).abs()
         frac = (o == r).float().mean().item()
         ok = bool(torch.all(err <= 0.03 + 0.02 * r.abs())) and frac >= 0.999
-        check(bool(torch.isfinite(o).all()), "stem kernel output not finite")
-        check(ok, f"stem b{b}: {frac:.6f} bit-equal (need 0.999), max err "
+        check(bool(torch.isfinite(o).all()), f"stem {what}: kernel output not finite")
+        check(ok, f"stem {what}: {frac:.6f} bit-equal (need 0.999), max err "
               f"{err.max().item():.4g} (atol 0.03, rtol 0.02)")
+        return out, err, frac
+
+    # the shapes the persistent tile walk can get wrong: b1 and b3, 320² and
+    # 1280², tiles that do not divide the image (random raw canvases)
+    rng = np.random.default_rng(SEED + 2)
+    for b, h, wd in EDGE_SHAPES:
+        canvas = np.zeros((b, 3, h + 2, wd + 2), np.float32)
+        canvas[:, :, 1:-1, 1:-1] = rng.integers(0, 256, (b, 3, h, wd))
+        held(torch.from_numpy(canvas).to(dev, torch.bfloat16), f"{b}x{h}x{wd}")
+    print(f"[stem] v4 class against stem_eval_plain at {len(EDGE_SHAPES)} edge shapes "
+          f"{EDGE_SHAPES}: held")
+    res = {}
+    for b in (8, 1):
+        rgb, _ = serve_inputs(b, SEED + 1)
+        canvas = letterbox_batch_cf(torch.from_numpy(rgb).to(dev), (640, 640))
+        canvas = canvas.to(torch.bfloat16).contiguous()
+        out, err, frac = held(canvas, f"b{b}")
         nbytes = canvas.numel() * 2 + out.numel() * 2 + w.numel() * 2 + bias.numel() * 4
         flops = 2 * b * 640 * 640 * 16 * 27
         bound_ms, bound_by = bound(nbytes, flops, H100_BF16_FLOPS)
@@ -134,8 +164,16 @@ def phase_stem(model, dev):
         print(f"[stem] b{b} 640²: bit-equal {frac:.6f}, max_abs_err "
               f"{res[b]['max_abs_err']:.4g} | kernel_ms {res[b]['ms']:.4f} "
               f"plain_ms {res[b]['plain_ms']:.4f} library_ms(cuDNN conv+pool+relu) "
-              f"{res[b]['library_ms']:.4f} bound_ms {bound_ms:.5f} ({bound_by})")
+              f"{res[b]['library_ms']:.4f} bound_ms {bound_ms:.5f} ({bound_by}) | "
+              + multiples(res[b]))
     return res[8]
+
+
+def multiples(t):
+    """A kernel's time as a multiple of its bound and of its library call."""
+    lib = ("null" if t["library_ms"] is None
+           else f"{t['ms'] / t['library_ms']:.3f}x library")
+    return f"{t['ms'] / t['bound_ms']:.2f}x bound, {lib}"
 
 
 def nms_pairs(boxes, alive, thr):
@@ -312,13 +350,15 @@ def phase_serve(dev):
 
 
 def phase_train_stem(dev, dtype=torch.bfloat16):
-    """Kernel C vs stem_train_plain at the train path's shape (b16 640², one
-    modality), on seeded NHWC images in [0, 1]; then the differentiable
-    `fused_train_stem` (γ of mixed signs, so the min pool is used) against
-    the plain decomposition `reference_stem`.  bf16: pools in the v4 class,
-    sums within 1e-3 relative.  float32 (TF32 off): pools within 1e-5 of
-    max|ĉ| plus 1e-5 relative, sums within 1e-4 relative, y within 1e-4 of
-    max|y| and the moments at rtol 1e-4; only summation orders differ."""
+    """Kernel C vs stem_train_plain at the edge shapes of its persistent
+    tile walk and at the train path's shape (b16 640², one modality), on
+    seeded NHWC images in [0, 1], with the sums of two launches bit-equal;
+    then the differentiable `fused_train_stem` (γ of mixed signs, so the
+    min pool is used) against the plain decomposition `reference_stem`.
+    bf16: pools in the v4 class, sums within 1e-3 relative.  float32 (TF32
+    off): pools within 1e-5 of max|ĉ| plus 1e-5 relative, sums within 1e-4
+    relative, y within 1e-4 of max|y| and the moments at rtol 1e-4; only
+    summation orders differ."""
     import torch.nn.functional as F
     from dcfa_yolo_tpu_torch.ops import cuda_stem_train as cst
     from dcfa_yolo_tpu_torch.utils.profiling import (H100_BF16_FLOPS, H100_FP32_FLOPS,
@@ -335,30 +375,46 @@ def phase_train_stem(dev, dtype=torch.bfloat16):
     beta = torch.from_numpy((rng.standard_normal(16) * 0.1).astype(np.float32)).to(dev)
     check(bool((gamma < 0).any() and (gamma > 0).any()), "γ needs both signs")
 
-    pmax, pmin, sums = cst.stem_train(x, k)
-    torch.cuda.synchronize()
-    rmax, rmin, rsums = cst.stem_train_plain(x, k)
-    c_max = max(rmax.float().abs().max().item(), rmin.float().abs().max().item())
-    res = {}
-    for name, o, r in (("pmax", pmax, rmax), ("pmin", pmin, rmin)):
-        o, r = o.float(), r.float()
-        err = (o - r).abs()
-        frac = (o == r).float().mean().item()
-        check(bool(torch.isfinite(o).all()), f"train stem {name} not finite")
-        if f32:
-            check(bool(torch.all(err <= 1e-5 * c_max + 1e-5 * r.abs())),
-                  f"train stem f32 {name}: max err {err.max().item():.4g} (atol "
-                  f"1e-5·max|ĉ| = {1e-5 * c_max:.4g}, rtol 1e-5)")
-        else:
-            check(bool(torch.all(err <= 0.03 + 0.02 * r.abs())) and frac >= 0.999,
-                  f"train stem {name}: {frac:.6f} bit-equal (need 0.999), max err "
-                  f"{err.max().item():.4g} (atol 0.03, rtol 0.02)")
-        res[name] = (err.max().item(), frac)
     # the f32 sums run in another order (per-CTA partials, then a fixed
     # reduction over CTAs): relative to each channel's magnitude
     sum_tol = 1e-4 if f32 else 1e-3
-    sum_err = ((sums - rsums).abs() / rsums.abs().clamp_min(1e-3 * rsums.abs().max())).max().item()
-    check(sum_err <= sum_tol, f"train stem sums: relative error {sum_err:.3g} > {sum_tol:g}")
+
+    def held(x, k, what):
+        pmax, pmin, sums = cst.stem_train(x, k)
+        torch.cuda.synchronize()
+        rmax, rmin, rsums = cst.stem_train_plain(x, k)
+        c_max = max(rmax.float().abs().max().item(), rmin.float().abs().max().item())
+        res = {}
+        for name, o, r in (("pmax", pmax, rmax), ("pmin", pmin, rmin)):
+            o, r = o.float(), r.float()
+            err = (o - r).abs()
+            frac = (o == r).float().mean().item()
+            check(bool(torch.isfinite(o).all()), f"train stem {what} {name} not finite")
+            if f32:
+                check(bool(torch.all(err <= 1e-5 * c_max + 1e-5 * r.abs())),
+                      f"train stem f32 {what} {name}: max err {err.max().item():.4g} "
+                      f"(atol 1e-5·max|ĉ| = {1e-5 * c_max:.4g}, rtol 1e-5)")
+            else:
+                check(bool(torch.all(err <= 0.03 + 0.02 * r.abs())) and frac >= 0.999,
+                      f"train stem {what} {name}: {frac:.6f} bit-equal (need 0.999), max "
+                      f"err {err.max().item():.4g} (atol 0.03, rtol 0.02)")
+            res[name] = (err.max().item(), frac)
+        sum_err = ((sums - rsums).abs()
+                   / rsums.abs().clamp_min(1e-3 * rsums.abs().max())).max().item()
+        check(sum_err <= sum_tol, f"train stem {what} sums: relative error {sum_err:.3g} "
+              f"> {sum_tol:g}")
+        return pmax, res, sums, sum_err, c_max
+
+    # the shapes the persistent tile walk can get wrong, pools and sums
+    for sb, sh, sw in EDGE_SHAPES:
+        xe = torch.from_numpy(rng.random((sb, sh, sw, 3), np.float32)).to(dev, dtype)
+        held(xe, k, f"{sb}x{sh}x{sw}")
+    print(f"{tag} pools and sums against stem_train_plain at {len(EDGE_SHAPES)} edge "
+          f"shapes: held")
+    pmax, res, sums, sum_err, c_max = held(x, k, f"b{b}")
+    again = cst.stem_train(x, k)[2]
+    check(torch.equal(again, sums), f"train stem sums differ between two launches: max "
+          f"{(again - sums).abs().max().item():.3g}")
 
     y, mean, var = cst.fused_train_stem(x, k32, gamma, beta, 1e-5)
     y_ref, mean_ref, var_ref = cst.reference_stem(x, k32, gamma, beta, 1e-5)
@@ -403,7 +459,8 @@ def phase_train_stem(dev, dtype=torch.bfloat16):
           f"{y_frac:.6f} bit-equal, max err {yd.max().item():.4g} | kernel_ms "
           f"{t['ms']:.4f} plain_ms {t['plain_ms']:.4f} library_ms(cuDNN "
           f"conv+max/min pools+sums) {t['library_ms']:.4f} bound_ms {bound_ms:.5f} "
-          f"({bound_by}, {nbytes / 1e6:.1f} MB)")
+          f"({bound_by}, {nbytes / 1e6:.1f} MB) | {multiples(t)}; sums bit-equal over two "
+          f"launches")
     return t
 
 
@@ -640,8 +697,8 @@ def phase_train_cli(dev):
 def phase_probe(dev):
     """The stem split probe at b16 640²: its entry point, with the launch
     counts read around exactly that run; then each variant against its plain
-    version (pool exactly, the others in the v4 class) and dblbuf and pipe
-    against full, bit for bit."""
+    version (pool exactly, the others in the v4 class), dblbuf and pipe
+    against full in the v4 class and against each other bit for bit."""
     import torch.nn.functional as F
     from dcfa_yolo_tpu_torch.ops import cuda_stem
     from dcfa_yolo_tpu_torch.ops import cuda_stem_probe as csp
@@ -680,10 +737,18 @@ def phase_probe(dev):
             check(bool(torch.all(err <= 0.03 + 0.02 * r.abs())) and frac >= 0.999,
                   f"probe {v}: {frac:.6f} bit-equal (need 0.999), max err "
                   f"{err.max().item():.4g} (atol 0.03, rtol 0.02)")
-        same = None
+        vs_full = None
         if v in ("dblbuf", "pipe"):
-            same = torch.equal(got, full) and res[v]["bit_identical_to_full"]
-            check(same, f"probe {v} is not bit-identical to full")
+            # kernel A sums on the tensor cores, dblbuf and pipe in its first
+            # fmaf order: the v4 class against full, and bit for bit against
+            # each other
+            fd = (o - full.float()).abs()
+            vs_full = (fd == 0).float().mean().item()
+            check(bool(torch.all(fd <= 0.03 + 0.02 * full.float().abs())) and vs_full >= 0.999,
+                  f"probe {v} vs full: {vs_full:.6f} bit-equal (need 0.999), max err "
+                  f"{fd.max().item():.4g} (atol 0.03, rtol 0.02)")
+            other = csp.stem_probe("pipe" if v == "dblbuf" else "dblbuf", canvas, w, bias)
+            check(torch.equal(got, other), "probe dblbuf and pipe are not bit-identical")
         lib = library.get(v, library["full"])
         bound_ms, bound_by = res[v]["bound_ms"], res[v]["bound_by"]
         out[v] = dict(max_abs_err=err.max().item(), bit_equal=frac, ms=res[v]["ms"],
@@ -694,7 +759,8 @@ def phase_probe(dev):
         lib_s = "null" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
         print(f"[probe] {v:6s} b{b} {size}²: launches {launches[v]}, bit-equal to plain "
               f"{frac:.6f}, max_abs_err {t['max_abs_err']:.4g}"
-              + ("" if same is None else ", bit-identical to full")
+              + ("" if vs_full is None else f", {vs_full:.6f} bit-equal to full (v4 class), "
+                 "bit-identical to " + ("pipe" if v == "dblbuf" else "dblbuf"))
               + f" | kernel_ms {t['ms']:.4f} ({t['ms'] / b * 1e3:.2f} us/img) plain_ms "
               f"{t['plain_ms']:.4f} library_ms {lib_s} bound_ms {bound_ms:.5f} "
               f"({bound_by})")

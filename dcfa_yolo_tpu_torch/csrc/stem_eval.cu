@@ -1,150 +1,135 @@
-// Fused eval stem for Hopper (sm_90a): conv3x3 s1 (3 -> 16) with eval-BN and
-// the /255 input scale folded into the weights, then maxpool 3x3 s2 pad 1,
-// then ReLU.  Only the pooled map is written to device memory.
+// Fused eval stem for Hopper (sm_90a), kernel A: conv3x3 s1 (3 -> 16) with
+// eval-BN and the /255 input scale folded into the weights, then maxpool 3x3
+// s2 pad 1, then ReLU.  Only the pooled map is written to device memory.
 //
 // Replaces the TPU kernels of dcfa_yolo_tpu/ops/pallas_stem.py:
 //   pallas_stem (_stem_kernel, v2), pallas_stem_d (_stem_kernel_d, v3),
 //   pallas_stem_e (_stem_kernel_e, v4) and pallas_stem_f (_stem_kernel_f, v5).
 // The four compute one function over four TPU canvas layouts; this kernel
-// computes it over the plain zero-bordered canvas and follows the v4/v5
-// weight contract (fold_stem_params_e): bf16 weights, a bf16-rounded bias
-// held in f32, f32 accumulation, the conv value rounded to bf16 BEFORE the
-// max tree (pallas_stem.py:260-264), ReLU after the pool (it absorbs the
-// pad: relu(max(S u {pad})) == relu(max(S))).
+// computes it over the plain zero-bordered canvas and follows the v4 weight
+// contract (fold_stem_params_e): bf16 weights, a bf16-rounded bias, f32
+// accumulation, the conv value rounded to bf16 BEFORE the max tree
+// (pallas_stem.py:260-264), ReLU after the pool (it absorbs the pad:
+// relu(max(S u {pad})) == relu(max(S))).  As in v4 (pallas_stem.py:174-196)
+// the bias rides in K row 27 of the conv GEMM against an operand column
+// fixed at 1.0; 1.0, the raw 0..255 pixels and their products with bf16
+// weights are exact, so only the f32 summation order differs from the plain
+// version (the v4 class).
 //
 // Contract
 //   canvas (B, 3, H+2, W+2) bf16: raw 0..255 pixels, 1-px zero border
 //   weight (16, 3, 3, 3) bf16, bias (16,) f32
 //   out    (B, H/2, W/2, 16) bf16 (NHWC == NCHW in channels_last); H, W even
+//   n_cta  the persistent grid, 1 <= n_cta <= tiles (ops/stem_core.py)
 //
 // Bound (640^2, per image and modality): 3 * 642 * 642 * 2 B = 2.47 MB in,
 // 320 * 320 * 16 * 2 B = 3.28 MB out, 640 * 640 * 16 * 27 * 2 = 354 MFLOP.
-// max(5.75 MB / 3.35 TB/s, 354 MFLOP / 989 TFLOP/s) = 1.7 us: the function is
-// memory-bound on an H100.  The design moves only those bytes: each CTA
-// reads its canvas tile plus halo once into shared memory (the halo overlap
-// re-reads about 15% of the canvas, mostly from L2), keeps the
-// full-resolution conv tile in shared memory, and writes each pooled pixel's
-// 16 channels as two 16-byte stores.  The conv runs on CUDA cores in f32
-// (the products of 0..255 integers and bf16 weights are exact in f32, so FMA
-// contraction does not change them); tensor cores, TMA and a persistent
-// schedule are left for a later revision.
+// max(5.75 MB / 3.35 TB/s, 354 MFLOP / 989 TFLOP/s) = 1.7 us: bytes bound it
+// by a wide margin.  The first version (one CTA a tile, a 16 x 27 f32 FMA
+// loop per conv position reading its weights from shared memory) took 255
+// registers and 928 B of stack, so one CTA fitted an SM and its load, conv
+// and pool ran one after the other with nothing to hide their latency.  This
+// design (stem_core.cuh): the conv on the tensor cores (four mma.sync per
+// 16 positions, the B fragments in 8 registers), which frees the registers
+// for three CTAs an SM (at most 80 registers a thread); a persistent grid
+// whose CTAs copy tile k+1's canvas by cp.async and pool tile k-1 while
+// they convolve tile k, one barrier a tile; the conv tiles in shared memory
+// at a 48-byte position stride, so that the pool's 16-byte reads of
+// neighbouring windows fall in distinct banks.  62 KB of shared memory a
+// CTA (dynamic).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "stem_core.cuh"
 
 namespace {
 
-constexpr int CO = 16;          // stem output channels (phi='n')
-constexpr int TH = 8;           // pooled rows per CTA
-constexpr int TW = 16;          // pooled cols per CTA
-constexpr int CR = 2 * TH + 1;  // conv rows under the tile's pool windows
-constexpr int CC = 2 * TW + 1;  // conv cols
-constexpr int IR = CR + 2;      // canvas rows incl. the 3x3 halo
-constexpr int IC = CC + 2;      // canvas cols
-constexpr int THREADS = 256;
-static_assert(TH * TW * 2 == THREADS, "one thread per (pooled pixel, 8 channels)");
+using namespace stem;
 
-__global__ void __launch_bounds__(THREADS)
-stem_eval_kernel(const __nv_bfloat16* __restrict__ canvas,
-                 const __nv_bfloat16* __restrict__ weight,
-                 const float* __restrict__ bias,
-                 __nv_bfloat16* __restrict__ out, int H, int W) {
-  __shared__ float s_in[3][IR][IC];
-  __shared__ float s_w[27][CO];  // [ci*9 + dy*3 + dx][co]
-  __shared__ float s_b[CO];
-  __shared__ __align__(16) __nv_bfloat16 s_conv[CR * CC][CO];
+constexpr int ICB = IC + 1;  // staged canvas cols, from the even column x0 - 1
+constexpr int WORDS = ICB / 2;  // 4-byte copies per staged row
+constexpr int SCS = 24;      // conv tile: bf16 elements per position (16 used)
 
-  const int tid = threadIdx.x;
-  const int b = blockIdx.z;
-  const int pr0 = blockIdx.y * TH;  // first pooled row / col of the tile
-  const int pc0 = blockIdx.x * TW;
-  const int Hp = H / 2, Wp = W / 2;
+// stage value (ci, r, c) of the tile (canvas row y0 + r, col x0 + c) sits at
+// ci*IR*ICB + r*ICB + c + 1: row r starts at the even column x0 - 1
+typedef StageLayout<IR * ICB, ICB, 1, 1> EvalLayout;
+
+struct EvalSmem {
+  alignas(16) bf16 conv[2][NPOS * SCS];
+  alignas(16) bf16 stage[2][3 * IR * ICB];
+};
+
+// The tile's canvas rows y0 .. y0 + IR - 1, cols x0 - 1 .. x0 + IC - 1, by
+// 4-byte cp.async (canvas rows are W + 2 elements: only 4 bytes align).
+// Pairs outside the canvas are zero-filled; gx and W + 2 are even, so a pair
+// lies wholly inside or outside.  Thread tid < 14 * WORDS copies word
+// tid % WORDS of staged rows (ci, r) = tid / WORDS, + 14, ... (3 * IR rows).
+__device__ __forceinline__ void stage_tile(const bf16* __restrict__ img, bf16* dst, int y0,
+                                           int x0, int H2, int W2) {
+  constexpr int GROUPS = THREADS / WORDS;
+  if (threadIdx.x >= GROUPS * WORDS) return;
+  const int w = threadIdx.x % WORDS;
+  const int gx = x0 - 1 + 2 * w;
+  const bool col_ok = gx >= 0 && gx < W2;
+  for (int row = threadIdx.x / WORDS; row < 3 * IR; row += GROUPS) {
+    const int ci = row / IR, gy = y0 + row % IR;
+    const bool ok = col_ok && gy >= 0 && gy < H2;
+    const bf16* src = ok ? img + ((size_t)ci * H2 + gy) * W2 + gx : img;
+    cp_async<4>(dst + row * ICB + 2 * w, src, ok);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 3)
+stem_eval_kernel(const bf16* __restrict__ canvas, const bf16* __restrict__ weight,
+                 const float* __restrict__ bias, bf16* __restrict__ out, int B, int H,
+                 int W) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  EvalSmem& sm = *reinterpret_cast<EvalSmem*>(smem_raw);
+  const int tiles_x = tiles_x_of(W), tiles_y = tiles_y_of(H);
   const int H2 = H + 2, W2 = W + 2;
-  // conv row y reads canvas rows y..y+2; the tile's first pool window starts
-  // at conv row 2*pr0 - 1, so canvas rows and conv rows share this origin
-  const int y0 = 2 * pr0 - 1, x0 = 2 * pc0 - 1;
+  const size_t img_elems = (size_t)3 * H2 * W2;
 
-  for (int i = tid; i < CO * 27; i += THREADS) {
-    s_w[i % 27][i / 27] = __bfloat162float(weight[i]);  // (co, ci, dy, dx)
-  }
-  if (tid < CO) s_b[tid] = bias[tid];
+  MmaOperands ops;
+  mma_operands<EvalLayout>(weight, bias, ops);
 
-  const __nv_bfloat16* img = canvas + (size_t)b * 3 * H2 * W2;
-  for (int i = tid; i < 3 * IR * IC; i += THREADS) {
-    const int ci = i / (IR * IC), r = (i / IC) % IR, c = i % IC;
-    const int gy = y0 + r, gx = x0 + c;
-    float v = 0.f;
-    if (gy >= 0 && gy < H2 && gx >= 0 && gx < W2)
-      v = __bfloat162float(img[((size_t)ci * H2 + gy) * W2 + gx]);
-    s_in[ci][r][c] = v;
-  }
-  __syncthreads();
-
-  // conv tile: one thread per conv position, all 16 channels; positions
-  // outside the image are the pool's padding (-inf, never the max)
-  for (int p = tid; p < CR * CC; p += THREADS) {
-    const int r = p / CC, c = p % CC;
-    const int y = y0 + r, x = x0 + c;
-    __nv_bfloat16* dst = s_conv[p];
-    if (y < 0 || y >= H || x < 0 || x >= W) {
-#pragma unroll
-      for (int co = 0; co < CO; ++co) dst[co] = __float2bfloat16_rn(-INFINITY);
-      continue;
-    }
-    float in[27];
-#pragma unroll
-    for (int ci = 0; ci < 3; ++ci)
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx)
-          in[ci * 9 + dy * 3 + dx] = s_in[ci][r + dy][c + dx];
-#pragma unroll
-    for (int co = 0; co < CO; ++co) {
-      float acc = 0.f;
-#pragma unroll
-      for (int k = 0; k < 27; ++k) acc = fmaf(in[k], s_w[k][co], acc);
-      dst[co] = __float2bfloat16_rn(acc + s_b[co]);
-    }
-  }
-  __syncthreads();
-
-  // pool: thread -> (pooled pixel, half of the channels)
-  const int pix = tid >> 1, half = tid & 1;
-  const int lr = pix / TW, lc = pix % TW;
-  const int pr = pr0 + lr, pc = pc0 + lc;
-  if (pr >= Hp || pc >= Wp) return;
-  float m[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) m[j] = -INFINITY;
-#pragma unroll
-  for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-    for (int dx = 0; dx < 3; ++dx) {
-      const __nv_bfloat16* src = s_conv[(2 * lr + dy) * CC + 2 * lc + dx] + half * 8;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) m[j] = fmaxf(m[j], __bfloat162float(src[j]));
-    }
-  __align__(16) __nv_bfloat16 res[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) res[j] = __float2bfloat16_rn(fmaxf(m[j], 0.f));
-  uint4* dst = reinterpret_cast<uint4*>(
-      out + (((size_t)b * Hp + pr) * Wp + pc) * CO + half * 8);
-  *dst = *reinterpret_cast<const uint4*>(res);
+  walk_tiles<2>(
+      B, tiles_x, tiles_y,
+      [&](const Tile& t, int buf) {
+        stage_tile(canvas + t.b * img_elems, sm.stage[buf], 2 * t.pr0 - 1, 2 * t.pc0 - 1, H2,
+                   W2);
+      },
+      [&](const Tile& t, int sbuf, int cbuf) {
+        // conv positions outside the image are the pool's padding: -inf
+        const int y0 = 2 * t.pr0 - 1, x0 = 2 * t.pc0 - 1;
+        bf16* conv = sm.conv[cbuf];
+        conv_tile_mma<EvalLayout>(
+            sm.stage[sbuf], ops, [&](int p, int ch, float v0, float v1, float v2, float v3) {
+              const int y = y0 + p / CC, x = x0 + p % CC;
+              const bool in = y >= 0 && y < H && x >= 0 && x < W;
+              uint32_t* dst = reinterpret_cast<uint32_t*>(conv + p * SCS);
+              dst[ch / 2] = in ? pack2(v0, v1) : BF16_NEG_INF2;
+              dst[ch / 2 + 4] = in ? pack2(v2, v3) : BF16_NEG_INF2;
+            });
+      },
+      [&](const Tile& t, int buf) { pool_max_relu<SCS>(sm.conv[buf], out, t, H / 2, W / 2); });
 }
 
 }  // namespace
 
-extern "C" int stem_eval_bf16(const void* canvas, const void* weight,
-                              const void* bias, void* out, int B, int H, int W,
-                              void* stream) {
-  const dim3 grid((W / 2 + TW - 1) / TW, (H / 2 + TH - 1) / TH, B);
-  stem_eval_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(canvas),
-      static_cast<const __nv_bfloat16*>(weight), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), H, W);
+// info[5]: registers, stack bytes, static and dynamic shared memory, resident
+// CTAs on the current device; returns a CUDA error code.
+extern "C" int stem_eval_info(int* info) {
+  return kernel_info(stem_eval_kernel, static_cast<int>(sizeof(EvalSmem)), info);
+}
+
+extern "C" int stem_eval_bf16(const void* canvas, const void* weight, const void* bias,
+                              void* out, int B, int H, int W, int n_cta, void* stream) {
+  if (!grid_ok(n_cta, B, H, W)) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = static_cast<int>(sizeof(EvalSmem));
+  cudaError_t e = cudaFuncSetAttribute(stem_eval_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  stem_eval_kernel<<<n_cta, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(canvas), static_cast<const bf16*>(weight),
+      static_cast<const float*>(bias), static_cast<bf16*>(out), B, H, W);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,8 +4,9 @@ Each `csrc/*.cu` source is compiled by its own `nvcc -c` for `sm_90a`, all
 started together, and the objects are linked into one shared library with a
 plain C interface, loaded with `ctypes`.  The build runs at first use into
 `dcfa_yolo_tpu_torch/_build/` (listed in `.gitignore`), named by a hash of the
-sources and flags so an edited source never loads a stale library.  Nothing
-here runs at import time: the package imports on machines without `nvcc`.
+sources, the headers they include and the flags, so an edited source or
+header never loads a stale library.  Nothing here runs at import time: the
+package imports on machines without `nvcc`.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Optional
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -33,6 +36,7 @@ SOURCES = {
     "stem_train.cu": [],
     "stem_probe.cu": [],
 }
+HEADERS = ("stem_core.cuh",)  # included by stem_eval.cu and stem_train.cu
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_SECONDS: Optional[float] = None
@@ -52,6 +56,9 @@ def _digest() -> str:
     for name, flags in sorted(SOURCES.items()):
         h.update(name.encode())
         h.update(" ".join(_ARCH + _COMMON + flags).encode())
+        h.update((CSRC_DIR / name).read_bytes())
+    for name in HEADERS:
+        h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     return h.hexdigest()[:16]
 
@@ -88,14 +95,16 @@ def _build(out: Path) -> None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.stem_eval_bf16.argtypes = [p, p, p, p, i, i, i, p]
+    lib.stem_eval_bf16.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.stem_eval_bf16.restype = i
+    lib.stem_eval_info.argtypes = [p]
+    lib.stem_eval_info.restype = i
     lib.nms_suppress.argtypes = [p, p, p, i, i, f, p]
     lib.nms_suppress.restype = i
-    lib.stem_train_num_ctas.argtypes = [i, i, i]
-    lib.stem_train_num_ctas.restype = i
+    lib.stem_train_info.argtypes = [i, p]
+    lib.stem_train_info.restype = i
     for fn in (lib.stem_train_bf16, lib.stem_train_f32):
-        fn.argtypes = [p, p, p, p, p, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, p]
         fn.restype = i
     lib.stem_probe_bf16.argtypes = [i, p, p, p, p, i, i, i, p]
     lib.stem_probe_bf16.restype = i
@@ -117,6 +126,31 @@ def load_library() -> ctypes.CDLL:
         BUILD_SECONDS = time.perf_counter() - t0
         _LIB = lib
     return _LIB
+
+
+STEM_KERNELS = ("stem_eval", "stem_train_bf16", "stem_train_f32")
+_INFO_KEYS = ("registers", "stack_bytes", "static_smem", "dynamic_smem",
+              "resident_ctas")
+_INFO: dict = {}
+
+
+def stem_kernel_info(name: str, device: torch.device) -> dict:
+    """What the card says of a stem kernel (`STEM_KERNELS`): registers and
+    stack bytes a thread, static and dynamic shared memory a CTA, and the
+    CTAs resident on `device` at once (SMs × CTAs per SM), which sizes the
+    persistent grid.  Cached per device; raises where the query fails."""
+    key = (name, device.index)
+    if key not in _INFO:
+        lib = load_library()
+        buf = (ctypes.c_int * len(_INFO_KEYS))()
+        with torch.cuda.device(device):
+            if name == "stem_eval":
+                rc = lib.stem_eval_info(buf)
+            else:
+                rc = lib.stem_train_info(int(name == "stem_train_f32"), buf)
+        check(rc, f"{name} info")
+        _INFO[key] = dict(zip(_INFO_KEYS, buf))
+    return _INFO[key]
 
 
 def check(rc: int, what: str) -> None:

@@ -1,5 +1,7 @@
 """Fused eval stem: conv3x3 s1 (3→16) + folded eval-BN and /255 + maxpool3x3
-s2 + ReLU, as one hand-written CUDA kernel (`csrc/stem_eval.cu`).
+s2 + ReLU, as one hand-written CUDA kernel (`csrc/stem_eval.cu`, kernel A,
+on the shared core `csrc/stem_core.cuh`: the conv on the tensor cores, a
+persistent double-buffered tile walk).
 
 Port of `dcfa_yolo_tpu/ops/pallas_stem.py` (`pallas_stem`, `pallas_stem_d`,
 `pallas_stem_e`, `pallas_stem_f`: one function over four TPU canvas
@@ -7,6 +9,8 @@ layouts).  The weight contract is the v4/v5 one (`fold_stem_params_e`).
 
 `stem_eval` launches the kernel for a CUDA tensor and uses the plain version
 `stem_eval_plain` only for a CPU tensor; `LAUNCHES` counts kernel launches.
+`stem_eval_gemm` computes the kernel's arithmetic in plain PyTorch, in the
+kernel's GEMM form (`ops/stem_core.py`).
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from dcfa_yolo_tpu_torch.ops import _build
+from dcfa_yolo_tpu_torch.ops import _build, stem_core
 
 STEM_CO = 16  # the kernel is specialised to phi='n''s 16 stem channels
 LAUNCHES = 0
@@ -49,6 +53,17 @@ def stem_eval_plain(canvas: torch.Tensor, weight: torch.Tensor,
     y = F.conv2d(canvas.float(), weight.float()) + bias.float().view(1, -1, 1, 1)
     y = y.to(torch.bfloat16).float()
     y = torch.relu(F.max_pool2d(y, 3, 2, 1))
+    return y.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
+
+
+def stem_eval_gemm(canvas: torch.Tensor, weight: torch.Tensor,
+                   bias: torch.Tensor) -> torch.Tensor:
+    """Kernel A's arithmetic, ordered as the kernel orders it: the im2col
+    operand with a ones column against the K=32 weights with the bias in row
+    27, one float32 matmul, bf16 rounding before the max pool (-inf pad),
+    then ReLU.  Same contract as `stem_eval_plain`."""
+    y = stem_core.conv_gemm(canvas, weight, bias, padding=0)
+    y = torch.relu(F.max_pool2d(y.to(torch.bfloat16).float(), 3, 2, 1))
     return y.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
 
 
@@ -93,8 +108,10 @@ def stem_eval(canvas: torch.Tensor, weight: torch.Tensor,
     if b == 0:
         return out
     lib = _build.load_library()
+    resident = _build.stem_kernel_info("stem_eval", canvas.device)["resident_ctas"]
     rc = lib.stem_eval_bf16(canvas.data_ptr(), weight.data_ptr(),
                             bias.data_ptr(), out.data_ptr(), b, h, w,
+                            stem_core.num_ctas(b, h, w, resident),
                             torch.cuda.current_stream(canvas.device).cuda_stream)
     _build.check(rc, "stem_eval")
     LAUNCHES += 1

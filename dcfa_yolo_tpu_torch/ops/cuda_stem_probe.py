@@ -19,11 +19,13 @@ stands for:
   pool warps (warp specialisation, two conv slots).
 
 All take kernel A's inputs (canvas (B, 3, H+2, W+2) bf16, `fold_stem_params`
-weights) and give its output shape (B, H/2, W/2, 16) bf16 NHWC.  'dblbuf'
-and 'pipe' are bit-identical to 'full'.  `stem_probe` launches a variant's
-kernel for a CUDA tensor and uses its plain version (`PLAIN`) only for a CPU
-tensor; `LAUNCHES` counts each new kernel's launches ('full' counts in
-`cuda_stem.LAUNCHES`).
+weights) and give its output shape (B, H/2, W/2, 16) bf16 NHWC.  The four
+kernels keep kernel A's first design (CUDA-core f32 conv); kernel A now sums
+on the tensor cores, so on the card 'dblbuf' and 'pipe' agree with 'full' in
+the v4 class and bit for bit with each other.  `stem_probe` launches a
+variant's kernel for a CUDA tensor and uses its plain version (`PLAIN`) only
+for a CPU tensor; `LAUNCHES` counts each new kernel's launches ('full'
+counts in `cuda_stem.LAUNCHES`).
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Fused train-mode stem: conv3x3 s1 (3→16) + train-BatchNorm + ReLU +
 maxpool3x3 s2, with the full-resolution pass in one hand-written CUDA kernel
-(`csrc/stem_train.cu`, kernel C).
+(`csrc/stem_train.cu`, kernel C, on the shared core `csrc/stem_core.cuh`:
+the bf16 conv on the tensor cores, a persistent double-buffered tile walk).
 
 Port of `dcfa_yolo_tpu/ops/pallas_stem_train.py` (`fused_train_stem`), in
 both of its compute dtypes (one CUDA template, C entries `stem_train_bf16`
@@ -14,6 +15,8 @@ ReLU run at pool resolution on the max or the min pool by sign(γ)
 `stem_train` launches the kernel for a CUDA tensor and uses the plain
 version `stem_train_plain` only for a CPU tensor; `LAUNCHES` counts kernel
 launches of both dtypes, `LAUNCHES_F32` those in float32.
+`stem_train_gemm` computes the kernel's arithmetic in plain PyTorch, in the
+kernel's GEMM form (`ops/stem_core.py`).
 `fused_train_stem` is the differentiable function; its backward
 differentiates the plain decomposition `reference_stem`, as the JAX VJP does
 (`pallas_stem_train.py:328-337`): the TPU kernel has no backward kernel.
@@ -26,13 +29,18 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from dcfa_yolo_tpu_torch.ops import _build
+from dcfa_yolo_tpu_torch.ops import _build, stem_core
 from dcfa_yolo_tpu_torch.ops.norm import batch_moments
 
 STEM_CO = 16  # the kernel is specialised to phi='n''s 16 stem channels
 LAUNCHES = 0      # kernel launches, both dtypes
 LAUNCHES_F32 = 0  # of which float32
 _ENTRIES = {torch.bfloat16: "stem_train_bf16", torch.float32: "stem_train_f32"}
+# the float32 kernel reads its weights from one constant-memory buffer per
+# device, written on the launch's stream: a launch on another stream than
+# the last one first waits for that stream, so no launch reads another's
+# weights
+_F32_LAST_STREAM: dict = {}
 
 
 def resolve_train_stem(backend: str, c_out: int, hw: Tuple[int, int],
@@ -72,7 +80,13 @@ def stem_train_plain(x: torch.Tensor, weight: torch.Tensor
     dtype before the pools and the sums (a no-op in float32).  On the card
     it needs TF32 off."""
     c = F.conv2d(x.permute(0, 3, 1, 2).float(), weight.float(), padding=1)
-    c = c.to(x.dtype)
+    return _pools_and_sums(c, x.dtype)
+
+
+def _pools_and_sums(c: torch.Tensor, dtype: torch.dtype
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """ĉ = c rounded to `dtype` (B, 16, H, W) → (pmax, pmin NHWC, sums)."""
+    c = c.to(dtype)
     pmax = F.max_pool2d(c, 3, 2, 1)
     pmin = -F.max_pool2d(-c, 3, 2, 1)
     cf = c.float()
@@ -81,12 +95,24 @@ def stem_train_plain(x: torch.Tensor, weight: torch.Tensor
             pmin.permute(0, 2, 3, 1).contiguous(), sums)
 
 
+def stem_train_gemm(x: torch.Tensor, weight: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel C's arithmetic, ordered as the kernel orders it: the zero-
+    padded im2col operand against the K=32 weights (rows 27-31 zero), one
+    float32 matmul, ĉ rounded to x's dtype before the pools and the sums.
+    Same contract as `stem_train_plain`."""
+    c = stem_core.conv_gemm(x.permute(0, 3, 1, 2), weight, None, padding=1)
+    return _pools_and_sums(c, x.dtype)
+
+
 def stem_train(x: torch.Tensor, weight: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel C on the NHWC input: (pmax, pmin, sums) as `stem_train_plain`
     returns them.  Launches the CUDA kernel for a bf16 or float32 CUDA
-    tensor; a CPU tensor takes `stem_train_plain`.  The per-CTA partial sums
-    are reduced here in a fixed order."""
+    tensor; a CPU tensor takes `stem_train_plain`.  The kernel runs
+    `stem_core.num_ctas` persistent CTAs, each writing one (16, 2) float64
+    partial of the sums; they are added here in float64 and rounded once
+    (in bf16 the sums are then exact up to that rounding)."""
     global LAUNCHES, LAUNCHES_F32
     if x.dim() != 4 or x.shape[3] != 3:
         raise ValueError(f"x must be (B, H, W, 3), got {tuple(x.shape)}")
@@ -112,18 +138,25 @@ def stem_train(x: torch.Tensor, weight: torch.Tensor
     if b == 0:
         return pmax, pmin, torch.zeros((STEM_CO, 2), device=x.device)
     lib = _build.load_library()
-    n_cta = lib.stem_train_num_ctas(b, h, w)
-    partials = torch.empty((n_cta, STEM_CO, 2), dtype=torch.float32,
+    entry = _ENTRIES[x.dtype]
+    stream = torch.cuda.current_stream(x.device)
+    if x.dtype == torch.float32:
+        last = _F32_LAST_STREAM.get(x.device.index)
+        if last is not None and last != stream:
+            stream.wait_stream(last)
+        _F32_LAST_STREAM[x.device.index] = stream
+    n_cta = stem_core.num_ctas(
+        b, h, w, _build.stem_kernel_info(entry, x.device)["resident_ctas"])
+    partials = torch.empty((n_cta, STEM_CO, 2), dtype=torch.float64,
                            device=x.device)
-    rc = getattr(lib, _ENTRIES[x.dtype])(
+    rc = getattr(lib, entry)(
         x.data_ptr(), weight.data_ptr(), pmax.data_ptr(), pmin.data_ptr(),
-        partials.data_ptr(), b, h, w,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        partials.data_ptr(), b, h, w, n_cta, stream.cuda_stream)
     _build.check(rc, "stem_train")
     LAUNCHES += 1
     if x.dtype == torch.float32:
         LAUNCHES_F32 += 1
-    return pmax, pmin, partials.sum(dim=0)
+    return pmax, pmin, partials.sum(dim=0).float()
 
 
 def reference_stem(x: torch.Tensor, kernel: torch.Tensor, gamma: torch.Tensor,

@@ -11,7 +11,9 @@ pool (load + pool tree, the centre tap's three channels plus the bias in
 place of the conv), dblbuf (persistent CTAs, next tile's canvas copied
 during this one) and pipe (conv warps one tile ahead of pool warps).  If
 conv + pool ≈ full, the phases run one after the other and overlapping
-them is the lever; if conv ≈ full, the conv is.
+them is the lever; if conv ≈ full, the conv is.  The four variants keep
+kernel A's first design (CUDA-core conv, one CTA a tile), so they split
+that design's time, not the present kernel A's.
 
 Inputs are made from seed 0 as in the JAX probe: a uint8 image batch in a
 zero-bordered canvas, a N(0, 0.1) kernel and an identity BN.  For each
@@ -19,8 +21,8 @@ variant it prints the time per call (`utils/profiling.py::device_ms`:
 CUDA events around `iters` launches after a warm-up; on the CPU, with
 `--device cpu`, the host clock of the plain versions), µs per image, its
 bound on the H100 (`variant_bound`) and, for dblbuf and pipe, whether the
-output is bit-identical to full.  Runs on the card unless `--device cpu` is
-given.
+output is bit-identical to full (on the card it is not: see `run`).  Runs on
+the card unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -76,7 +78,13 @@ def variant_bound(variant: str, canvas: torch.Tensor, weight: torch.Tensor,
 def run(batch: int = 128, size: int = 640, device="cuda", iters: int = 20
         ) -> Dict[str, Dict]:
     """Time every variant; returns {variant: {ms, us_per_img, bound_ms,
-    bound_by, and bit_identical_to_full for dblbuf and pipe}}."""
+    bound_by, and bit_identical_to_full for dblbuf and pipe}}.
+
+    `bit_identical_to_full` is reported, not required.  On the card it is
+    False: kernel A ('full') sums its conv on the tensor cores, while dblbuf
+    and pipe keep kernel A's first CUDA-core fmaf order, so they agree with
+    it in the v4 class (and bit for bit with each other).  On the CPU every
+    variant is its plain version and it is True."""
     from dcfa_yolo_tpu_torch.device import resolve_device
     from dcfa_yolo_tpu_torch.ops.cuda_stem_probe import VARIANTS, stem_probe
     from dcfa_yolo_tpu_torch.utils.profiling import device_ms

@@ -30,7 +30,13 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape", [(2, 64, 130), (1, 640, 640), (3, 30, 18)])
+# the shapes the persistent tile walk can get wrong: b1 and b3, 320² and
+# 1280², and tiles that do not divide the image
+EDGE_SHAPES = [(2, 64, 130), (1, 640, 640), (3, 30, 18), (1, 66, 66), (3, 640, 640),
+               (1, 320, 320), (3, 320, 320), (1, 1280, 1280)]
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
 def test_stem_kernel_matches_plain(cuda, shape):
     b, h, w = shape
     rng = np.random.default_rng(h * w)
@@ -50,6 +56,18 @@ def test_stem_kernel_matches_plain(cuda, shape):
     out, ref = out.float().cpu().numpy(), ref.float().cpu().numpy()
     np.testing.assert_allclose(out, ref, atol=0.03, rtol=0.02)
     assert (out == ref).mean() >= 0.999
+
+
+@pytest.mark.parametrize("name", ["stem_eval", "stem_train_bf16", "stem_train_f32"])
+def test_stem_kernels_fit_two_ctas_an_sm(cuda, name):
+    """Kernels A and C: at most 128 registers a thread and no stack, so that
+    at least two 256-thread CTAs are resident on every SM."""
+    from dcfa_yolo_tpu_torch.ops import _build
+
+    info = _build.stem_kernel_info(name, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert info["registers"] <= 128 and info["stack_bytes"] == 0, info
+    assert info["resident_ctas"] >= 2 * sms, info
 
 
 def _boxes(rng, b, k):
@@ -78,11 +96,12 @@ def test_nms_kernel_matches_plain_exactly(cuda, b, k):
         assert not keep[-1].any()
 
 
-@pytest.mark.parametrize("shape", [(2, 64, 130), (16, 640, 640), (3, 30, 18)])
+@pytest.mark.parametrize("shape", EDGE_SHAPES + [(16, 640, 640)])
 def test_train_stem_kernel_matches_plain(cuda, shape):
     """Kernel C against stem_train_plain: pools in the v4 class (only the
     conv's f32 summation order differs), per-channel sums to 1e-3 relative
-    (f32 sums in another order)."""
+    (f32 sums in another order); a second launch repeats the sums bit for
+    bit."""
     b, h, w = shape
     rng = np.random.default_rng(h + w)
     x = torch.from_numpy(rng.random((b, h, w, 3), np.float32)).to(cuda, torch.bfloat16)
@@ -99,14 +118,16 @@ def test_train_stem_kernel_matches_plain(cuda, shape):
         assert (got == ref).mean() >= 0.999
     np.testing.assert_allclose(sums.cpu().numpy(), rsums.cpu().numpy(), rtol=1e-3,
                                atol=1e-3 * rsums.abs().max().item())
+    assert torch.equal(cuda_stem_train.stem_train(x, k)[2], sums)
 
 
-@pytest.mark.parametrize("shape", [(2, 64, 130), (16, 640, 640), (3, 30, 18)])
+@pytest.mark.parametrize("shape", EDGE_SHAPES + [(16, 640, 640)])
 def test_train_stem_f32_kernel_matches_plain(cuda, shape):
     """Kernel C's float32 instantiation against stem_train_plain: only the
     conv's f32 summation order differs, so the pools agree within 1e-5 of
     max|ĉ| plus 1e-5 relative and the sums within 1e-4 relative; the launch
-    is counted in LAUNCHES and LAUNCHES_F32."""
+    is counted in LAUNCHES and LAUNCHES_F32, and a second launch repeats the
+    sums bit for bit."""
     b, h, w = shape
     rng = np.random.default_rng(h * w + 1)
     x = torch.from_numpy(rng.random((b, h, w, 3), np.float32)).to(cuda)
@@ -124,6 +145,28 @@ def test_train_stem_f32_kernel_matches_plain(cuda, shape):
                                    atol=1e-5 * c_max)
     np.testing.assert_allclose(sums.cpu().numpy(), rsums.cpu().numpy(), rtol=1e-4,
                                atol=1e-4 * rsums.abs().max().item())
+    assert torch.equal(cuda_stem_train.stem_train(x, k)[2], sums)
+
+
+def test_train_stem_f32_launches_on_two_streams_keep_their_weights(cuda):
+    """The float32 kernel reads its weights from one constant-memory buffer
+    written on the launch's stream; launches on two streams with different
+    weights each get their own (the wrapper orders the streams)."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.random((2, 64, 130, 3), np.float32)).to(cuda)
+    ks = [torch.from_numpy((rng.standard_normal((16, 3, 3, 3)) * 0.3).astype(np.float32)).to(cuda)
+          for _ in range(2)]
+    side = torch.cuda.Stream(cuda)
+    first = cuda_stem_train.stem_train(x, ks[0])
+    with torch.cuda.stream(side):
+        second = cuda_stem_train.stem_train(x, ks[1])
+    torch.cuda.synchronize()
+    for got, k in ((first, ks[0]), (second, ks[1])):
+        ref = cuda_stem_train.stem_train_plain(x, k)
+        c_max = max(ref[0].abs().max().item(), ref[1].abs().max().item())
+        for g, r in zip(got[:2], ref[:2]):
+            np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=1e-5,
+                                       atol=1e-5 * c_max)
 
 
 def _probe_inputs(cuda, b, h, w):
@@ -145,7 +188,9 @@ def _probe_inputs(cuda, b, h, w):
 def test_probe_kernel_matches_plain(cuda, variant, shape):
     """Each probe kernel against its plain version: conv in the v4 class
     (only the f32 summation order differs), pool exactly (the same f32 adds
-    in the same order), dblbuf and pipe bit-identical to kernel A."""
+    in the same order); dblbuf and pipe in the v4 class against kernel A
+    (which sums on the tensor cores, they in kernel A's first CUDA-core fmaf
+    order) and bit-identical to each other."""
     from dcfa_yolo_tpu_torch.ops import cuda_stem_probe as csp
 
     x, w_f, bias = _probe_inputs(cuda, *shape)
@@ -161,7 +206,12 @@ def test_probe_kernel_matches_plain(cuda, variant, shape):
         np.testing.assert_allclose(got, want, atol=0.03, rtol=0.02)
         assert (got == want).mean() >= 0.999
     if variant in ("dblbuf", "pipe"):
-        assert torch.equal(out, cuda_stem.stem_eval(x, w_f, bias))
+        got = out.float().cpu().numpy()
+        full = cuda_stem.stem_eval(x, w_f, bias).float().cpu().numpy()
+        np.testing.assert_allclose(got, full, atol=0.03, rtol=0.02)
+        assert (got == full).mean() >= 0.999
+        other = "pipe" if variant == "dblbuf" else "dblbuf"
+        assert torch.equal(out, csp.stem_probe(other, x, w_f, bias))
 
 
 def test_deploy_predictor_matches_train_graph(cuda):
