@@ -199,16 +199,55 @@ def nms_pairs(boxes, alive, thr):
     return pairs
 
 
-def time_nms(boxes, alive, thr, scores=None):
+def kernel_pairs(alive):
+    """IoU pairs kernel B's phase 1 evaluates on this data: each alive row
+    against every column of its 64 x 64 tiles on or above the diagonal."""
+    k = alive.shape[1]
+    tiles = -(-k // 64)
+    rows = torch.arange(k, device=alive.device)
+    return int((alive * (64 * (tiles - rows // 64))).sum())
+
+
+def nms_phase_us(boxes, alive, thr, calls=10):
+    """Device µs a call of kernel B's two phases, mask and scan, from a
+    torch.profiler trace of `calls` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
     from dcfa_yolo_tpu_torch.ops import cuda_nms
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            cuda_nms.greedy_suppress(boxes, alive, thr)
+        torch.cuda.synchronize()
+    us = {"mask": 0.0, "scan": 0.0}
+    for e in prof.key_averages():
+        for phase in us:
+            if f"nms_{phase}_kernel" in e.key:
+                us[phase] += e.device_time_total / calls
+    return us
+
+
+def time_nms(boxes, alive, thr, scores=None):
+    """Kernel B against greedy_suppress_plain (keep masks exactly equal),
+    its phase-1 words against suppress_mask_plain wherever the scan reads
+    them, two launches bit-identical; then its time beside its bound."""
+    from dcfa_yolo_tpu_torch.ops import _build, cuda_nms
     from dcfa_yolo_tpu_torch.utils.profiling import H100_FP32_FLOPS, bound, device_ms
 
     b, k = alive.shape
-    keep = cuda_nms.greedy_suppress(boxes, alive, thr)
+    keep, mask = cuda_nms.greedy_suppress_with_mask(boxes, alive, thr)
+    keep2, mask2 = cuda_nms.greedy_suppress_with_mask(boxes, alive, thr)
     torch.cuda.synchronize()
     ref = cuda_nms.greedy_suppress_plain(boxes, alive, thr)
     check(torch.equal(keep, ref), f"NMS keep mask differs from the plain "
           f"version at B={b}, K={k}: {(keep != ref).sum().item()} entries")
+    reads = cuda_nms.scan_reads(alive)
+    words = cuda_nms.suppress_mask_plain(boxes, alive, thr)
+    check(torch.equal(mask[reads], words[reads]),
+          f"NMS phase-1 words differ from suppress_mask_plain at B={b}, K={k}: "
+          f"{(mask[reads] != words[reads]).sum().item()} of {int(reads.sum())}")
+    check(torch.equal(keep, keep2) and torch.equal(mask[reads], mask2[reads]),
+          f"NMS: two launches differ at B={b}, K={k}")
     lib_ms = None
     if importlib.util.find_spec("torchvision") is not None and scores is not None:
         import torchvision
@@ -222,36 +261,56 @@ def time_nms(boxes, alive, thr, scores=None):
     bound_ms, bound_by = bound(b * k * 18, 12 * pairs, H100_FP32_FLOPS)
     return dict(
         max_abs_err=float((keep.int() - ref.int()).abs().max()),
-        kept=int(ref.sum()), pairs=pairs,
+        kept=int(ref.sum()), pairs=pairs, kernel_pairs=kernel_pairs(alive),
+        scratch_bytes=mask.untyped_storage().nbytes(),
+        scan_smem=_build.load_library().nms_scan_smem(k),
+        phase_us=nms_phase_us(boxes, alive, thr),
         ms=device_ms(lambda: cuda_nms.greedy_suppress(boxes, alive, thr), 20),
         plain_ms=device_ms(lambda: cuda_nms.greedy_suppress_plain(boxes, alive, thr), 2,
                            warmup=1),
         library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
+def nms_boxes(b, k, seed):
+    """Seeded clustered boxes with IoUs exactly at 0.5 (every ninth pair)
+    and 10% dead candidates, an all-dead image where b > 1, and sorted
+    scores."""
+    rng = np.random.default_rng(seed)
+    cxy = rng.uniform(40, 600, (b, 6, 2))[np.arange(b)[:, None], rng.integers(0, 6, (b, k))]
+    cxy = cxy + rng.normal(0, 12, (b, k, 2))
+    wh = rng.uniform(20, 90, (b, k, 2))
+    boxes = np.concatenate([cxy - wh / 2, cxy + wh / 2], -1).astype(np.float32)
+    boxes[:, 0:k - 1:9] = [0, 0, 16, 8]   # IoU exactly 0.5 with the next
+    boxes[:, 1:k:9] = [0, 0, 8, 8]
+    alive = rng.random((b, k)) < 0.9
+    if b > 1:
+        alive[b // 2] = False               # an all-dead image
+    scores = np.sort(rng.random((b, k)).astype(np.float32), axis=1)[:, ::-1].copy()
+    return boxes, alive, scores
+
+
 def phase_nms(dev):
-    """Kernel B vs greedy_suppress_plain on clustered seeded boxes with IoUs
-    exactly at the threshold and all-dead images: keep masks must be equal."""
-    k = 1024
-    for b in (1, 8, 32):
-        rng = np.random.default_rng(SEED + b)
-        cxy = rng.uniform(40, 600, (b, 6, 2))[np.arange(b)[:, None], rng.integers(0, 6, (b, k))]
-        cxy = cxy + rng.normal(0, 12, (b, k, 2))
-        wh = rng.uniform(20, 90, (b, k, 2))
-        boxes = np.concatenate([cxy - wh / 2, cxy + wh / 2], -1).astype(np.float32)
-        boxes[:, 0:k - 1:9] = [0, 0, 16, 8]   # IoU exactly 0.5 with the next
-        boxes[:, 1:k:9] = [0, 0, 8, 8]
-        alive = rng.random((b, k)) < 0.9
-        if b > 1:
-            alive[b // 2] = False               # an all-dead image
-        scores = np.sort(rng.random((b, k)).astype(np.float32), axis=1)[:, ::-1].copy()
+    """Kernel B vs greedy_suppress_plain at B = 1 / 8 / 32 and K = 1024 (the
+    serving K), then at K = 33, 2048 and 8400 (the eval's K at 640²) at
+    B = 1 and 8: keep masks equal, phase-1 words equal, two launches
+    bit-identical; timed beside its bound."""
+    shapes = [(1, 1024), (8, 1024), (32, 1024)] + [(b, k) for k in (33, 2048, 8400)
+                                                   for b in (1, 8)]
+    for b, k in shapes:
+        # K=1024 keeps the seeds of the first port's runs, so that its times
+        # compare on the same boxes
+        boxes, alive, scores = nms_boxes(b, k, SEED + b + (k if k != 1024 else 0))
         t = time_nms(torch.from_numpy(boxes).to(dev), torch.from_numpy(alive).to(dev),
                      0.5, torch.from_numpy(scores).to(dev))
         lib = "null" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
-        print(f"[nms] B={b} K={k}: keep masks equal (kept {t['kept']}, "
-              f"{t['pairs']} IoU pairs) | kernel_ms {t['ms']:.4f} plain_ms "
-              f"{t['plain_ms']:.2f} library_ms {lib} bound_ms "
-              f"{t['bound_ms']:.6f} ({t['bound_by']})")
+        print(f"[nms] B={b} K={k}: keep masks and phase-1 words equal, two launches "
+              f"identical (kept {t['kept']}; IoU pairs {t['pairs']} needed, "
+              f"{t['kernel_pairs']} evaluated; scratch {t['scratch_bytes']} B, scan "
+              f"shared memory {t['scan_smem']} B) | "
+              f"kernel_ms {t['ms']:.4f} plain_ms {t['plain_ms']:.2f} library_ms {lib} "
+              f"bound_ms {t['bound_ms']:.6f} ({t['bound_by']}) | "
+              f"{t['ms'] / t['bound_ms']:.0f}x bound; device us mask "
+              f"{t['phase_us']['mask']:.2f} scan {t['phase_us']['scan']:.2f}")
 
 
 def phase_serve(dev):
@@ -305,14 +364,19 @@ def phase_serve(dev):
           f"{score_err:.3g} (tol 0.005), max |Δbox| {box_err:.3g} px (tol 0.5)")
     check(torch.equal(ck, cp) and score_err <= 0.005 and box_err <= 0.5,
           "kernel path disagrees with the all-plain path")
-    nms_kw = dict(conf_thres=0.001, iou_thres=0.5, pre_nms_topk=1024, max_det=300)
-    rk = batched_nms(bk, sk, ck, backend="kernel", **nms_kw)
-    rp = batched_nms(bk, sk, ck, backend="plain", **nms_kw)
-    for name in rk._fields:
-        check(torch.equal(getattr(rk, name), getattr(rp, name)),
-              f"NMS {name} differs between kernel and plain on the served predictions")
-    print(f"[serve] NMS kernel == plain on the served b8 predictions "
-          f"(valid {rk.valid.sum(-1).tolist()}, candidates {rk.n_candidates.tolist()})")
+    # pre_nms_topk 2048 and 8400: the K that get_map's auto-raise reaches at
+    # 640² (8400 anchors, all above conf 0.001)
+    for topk in (1024, 2048, 8400):
+        nms_kw = dict(conf_thres=0.001, iou_thres=0.5, pre_nms_topk=topk, max_det=300)
+        rk = batched_nms(bk, sk, ck, backend="kernel", **nms_kw)
+        rp = batched_nms(bk, sk, ck, backend="plain", **nms_kw)
+        for name in rk._fields:
+            check(torch.equal(getattr(rk, name), getattr(rp, name)),
+                  f"NMS {name} differs between kernel and plain on the served "
+                  f"predictions at pre_nms_topk {topk}")
+        print(f"[serve] NMS kernel == plain on the served b8 predictions at "
+              f"pre_nms_topk {topk} (valid {rk.valid.sum(-1).tolist()}, "
+              f"candidates {rk.n_candidates.tolist()})")
     # the final detections of the two paths, reported and not checked (see
     # above): the share of output slots that agree under the JAX criterion
     ek, ep = pred._run(rgb8, nir8, None), plain._run(rgb8, nir8, None)
@@ -330,7 +394,10 @@ def phase_serve(dev):
     nms_t = time_nms(off.contiguous(), alive, 0.5, top_s)
     print(f"[serve] NMS at the served b8 input: kernel_ms {nms_t['ms']:.4f} "
           f"plain_ms {nms_t['plain_ms']:.2f} bound_ms {nms_t['bound_ms']:.6f} "
-          f"({nms_t['bound_by']}, {nms_t['pairs']} IoU pairs)")
+          f"({nms_t['bound_by']}, {nms_t['pairs']} IoU pairs needed, "
+          f"{nms_t['kernel_pairs']} evaluated; kept {nms_t['kept']}) | "
+          f"{nms_t['ms'] / nms_t['bound_ms']:.0f}x bound; device us mask "
+          f"{nms_t['phase_us']['mask']:.2f} scan {nms_t['phase_us']['scan']:.2f}")
 
     # throughput of the served path (host clock, ends in a device sync)
     def rate(fn, pairs, iters):

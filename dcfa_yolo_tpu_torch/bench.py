@@ -9,7 +9,7 @@ fused) with the channel shuffles folded into the weights, `init_model`
 weights from seed 0, conf 0.5, IoU 0.3, `pre_nms_topk` 512, `max_det` 300.
 Inputs are seeded uint8 (B, 480, 602, 3) pairs staged on the device once;
 outputs stay on the device.  The stem autotune times the plain and the
-kernel stem (where `infer/pipeline.py::kernel_stem_eligible` allows it),
+kernel stem (where `stem_candidates` allows it),
 min(BENCH_ITERS, 10) calls a trial, and keeps the faster; a candidate that
 fails fails the bench.  Batch 1 is timed over BENCH_ITERS calls a trial.
 
@@ -42,14 +42,24 @@ import torch
 REFERENCE_CPU_PAIRS_PER_SEC = 2.461
 
 
+def stem_candidates(cfg, dev: torch.device) -> list:
+    """The stems the autotune times: the plain graph, and the kernel where
+    it fits the model (`kernel_stem_eligible`) and its wrapper runs on
+    `dev`: an sm_90 card, or the CPU, where it takes its plain version."""
+    from dcfa_yolo_tpu_torch.device import kernels_supported
+    from dcfa_yolo_tpu_torch.infer.pipeline import kernel_stem_eligible
+
+    kernel = kernel_stem_eligible(cfg) and (dev.type == "cpu"
+                                            or kernels_supported(dev))
+    return ["plain"] + (["kernel"] if kernel else [])
+
+
 def run() -> dict:
     """Run the bench as the environment configures it; returns the record
     that `main` prints."""
     from dcfa_yolo_tpu_torch.config import ModelConfig
     from dcfa_yolo_tpu_torch.device import resolve_device
-    from dcfa_yolo_tpu_torch.infer.pipeline import (detect_batch,
-                                                    kernel_stem_eligible,
-                                                    resolve_stem)
+    from dcfa_yolo_tpu_torch.infer.pipeline import detect_batch, resolve_stem
     from dcfa_yolo_tpu_torch.models.reparam import cast_model_conv_kernels
     from dcfa_yolo_tpu_torch.models.yolo import init_model
     from dcfa_yolo_tpu_torch.utils.profiling import (H100_BF16_FLOPS, forward_flops,
@@ -90,11 +100,10 @@ def run() -> dict:
 
     autotune = None
     if stem == "autotune":
-        candidates = ["plain"] + (["kernel"] if kernel_stem_eligible(cfg) else [])
         times = {c: timeit_chained(make_fn(c, image_hw), (rgb, nir),
                                    iters=min(iters, 10), trials=2, warmup=8,
                                    device=dev)
-                 for c in candidates}
+                 for c in stem_candidates(cfg, dev)}
         stem = min(times, key=times.get)
         autotune = {c: round(batch / t, 1) for c, t in times.items()}
 

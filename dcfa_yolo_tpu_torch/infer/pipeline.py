@@ -14,6 +14,7 @@ from typing import Tuple
 import torch
 
 from dcfa_yolo_tpu_torch.config import ModelConfig
+from dcfa_yolo_tpu_torch.device import kernels_supported, require_kernels
 from dcfa_yolo_tpu_torch.infer.decode import correct_boxes_yxyx, decode_box
 from dcfa_yolo_tpu_torch.models.yolo import DCFAYolo
 from dcfa_yolo_tpu_torch.ops.cuda_stem import STEM_CO, fold_stem_params, stem_eval
@@ -40,20 +41,25 @@ def kernel_stem_eligible(cfg: ModelConfig) -> bool:
 def resolve_stem(stem: str, cfg: ModelConfig, device: torch.device) -> str:
     """'kernel' (the fused stem) or 'plain' (the ConvMaxpool graph).
 
-    'auto' picks the kernel on a CUDA device wherever it applies
-    (`kernel_stem_eligible`).  An explicit kernel request that cannot be
-    met raises.
+    'auto' picks the kernel on an sm_90 card (`device.kernels_supported`)
+    wherever it applies (`kernel_stem_eligible`).  An explicit kernel
+    request that cannot be met raises: on another CUDA card, or for a model
+    the kernel does not fit.  On the CPU the kernel's wrapper takes its
+    plain version.
     """
     eligible = kernel_stem_eligible(cfg)
     if stem == "auto":
-        return "kernel" if device.type == "cuda" and eligible else "plain"
+        return "kernel" if eligible and kernels_supported(device) else "plain"
     if stem not in _STEM_NAMES:
         raise ValueError(f"unknown stem backend {stem!r}")
-    if _STEM_NAMES[stem] == "kernel" and not eligible:
-        raise ValueError(
-            f"stem={stem!r} needs base_channels={STEM_CO}, bf16 compute and "
-            f"an even input shape; cfg has base_channels={cfg.base_channels}, "
-            f"compute_dtype={cfg.compute_dtype}, input_shape={cfg.input_shape}")
+    if _STEM_NAMES[stem] == "kernel":
+        if not eligible:
+            raise ValueError(
+                f"stem={stem!r} needs base_channels={STEM_CO}, bf16 compute and "
+                f"an even input shape; cfg has base_channels={cfg.base_channels}, "
+                f"compute_dtype={cfg.compute_dtype}, input_shape={cfg.input_shape}")
+        if device.type == "cuda":
+            require_kernels(device, f"stem={stem!r}")
     return _STEM_NAMES[stem]
 
 

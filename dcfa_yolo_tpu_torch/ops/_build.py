@@ -99,8 +99,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.stem_eval_bf16.restype = i
     lib.stem_eval_info.argtypes = [p]
     lib.stem_eval_info.restype = i
-    lib.nms_suppress.argtypes = [p, p, p, i, i, f, p]
+    lib.nms_suppress.argtypes = [p, p, p, i, p, i, i, f, p]
     lib.nms_suppress.restype = i
+    lib.nms_scan_smem.argtypes = [i]
+    lib.nms_scan_smem.restype = i
     lib.stem_train_info.argtypes = [i, p]
     lib.stem_train_info.restype = i
     for fn in (lib.stem_train_bf16, lib.stem_train_f32):

@@ -29,6 +29,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from dcfa_yolo_tpu_torch.device import kernels_supported
 from dcfa_yolo_tpu_torch.ops import _build, stem_core
 from dcfa_yolo_tpu_torch.ops.norm import batch_moments
 
@@ -53,8 +54,7 @@ def resolve_train_stem(backend: str, c_out: int, hw: Tuple[int, int],
     a CPU tensor the kernel's wrapper takes its plain version.
     """
     shape_ok = c_out == STEM_CO and hw[0] % 2 == 0 and hw[1] % 2 == 0
-    on_card = (device.type == "cuda"
-               and torch.cuda.get_device_capability(device) == (9, 0))
+    on_card = kernels_supported(device)
     dtype_ok = dtype in _ENTRIES
     if backend == "auto":
         return "kernel" if shape_ok and on_card and dtype_ok else "plain"

@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from dcfa_yolo_tpu_torch.device import kernels_supported
 from dcfa_yolo_tpu_torch.ops.cuda_nms import greedy_suppress, greedy_suppress_plain
 
 
@@ -66,6 +67,18 @@ def _finalize(keep, top_boxes, top_scores, top_classes, max_det: int):
     return out_boxes, out_scores, out_classes, valid
 
 
+def resolve_nms(backend: str, device: torch.device) -> str:
+    """'kernel' or 'plain' for the greedy suppression.  'auto' picks the
+    kernel on an sm_90 card (`device.kernels_supported`) and the plain
+    version elsewhere; an explicit 'kernel' stays 'kernel' (on the CPU its
+    wrapper takes the plain version, on another CUDA card it raises)."""
+    if backend == "auto":
+        return "kernel" if kernels_supported(device) else "plain"
+    if backend not in ("kernel", "plain"):
+        raise ValueError(f"unknown NMS backend {backend!r}")
+    return backend
+
+
 def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
                 classes: torch.Tensor, conf_thres: float, iou_thres: float,
                 pre_nms_topk: int = 1024, max_det: int = 300,
@@ -73,13 +86,10 @@ def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
     """Batch NMS.  boxes (B, A, 4) float32 xyxy, scores (B, A), classes (B, A).
 
     backend 'kernel': the CUDA suppression kernel (its plain twin on a CPU
-    tensor); 'plain': the plain PyTorch suppression; 'auto': the kernel on a
-    CUDA tensor, the plain version on a CPU one.
+    tensor); 'plain': the plain PyTorch suppression; 'auto': the kernel on
+    an sm_90 card, the plain version elsewhere (`resolve_nms`).
     """
-    if backend == "auto":
-        backend = "kernel" if boxes.is_cuda else "plain"
-    if backend not in ("kernel", "plain"):
-        raise ValueError(f"unknown NMS backend {backend!r}")
+    backend = resolve_nms(backend, boxes.device)
     suppress = greedy_suppress if backend == "kernel" else greedy_suppress_plain
     conf = torch.tensor(conf_thres, dtype=scores.dtype, device=scores.device)
     n_cand = (scores >= conf).sum(dim=-1).to(torch.int32)

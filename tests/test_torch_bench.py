@@ -104,6 +104,22 @@ def test_bench_cpu_json_line(monkeypatch, capsys):
     assert rec["gflop_per_pair"] > 0
 
 
+@pytest.mark.parametrize("cap,kernel", [((9, 0), True), ((8, 0), False), ((9, 1), False)])
+def test_bench_stem_candidates_need_sm90(monkeypatch, cap, kernel):
+    """The stem autotune times kernel A only where it runs: an sm_90 card
+    (or the CPU, where its wrapper takes the plain version), and only for a
+    model it fits."""
+    from dcfa_yolo_tpu_torch.config import ModelConfig
+
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda device=None: cap)
+    cfg = ModelConfig(num_classes=1, phi="n", compute_dtype="bfloat16")
+    card, cpu = torch.device("cuda"), torch.device("cpu")
+    assert bench.stem_candidates(cfg, card) == ["plain"] + ["kernel"] * kernel
+    assert bench.stem_candidates(cfg, cpu) == ["plain", "kernel"]
+    f32 = ModelConfig(num_classes=1, phi="n", compute_dtype="float32")
+    assert bench.stem_candidates(f32, card) == ["plain"]
+
+
 def test_bench_knobs_reach_the_pipeline(monkeypatch, capsys):
     """BENCH_IN_DTYPE, BENCH_CAST_W, BENCH_FOLD_SHUFFLE, BENCH_NMS, BENCH_STEM
     and BENCH_B1 set away from their defaults, each seen where the bench

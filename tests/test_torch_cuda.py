@@ -80,20 +80,95 @@ def _boxes(rng, b, k):
     return boxes
 
 
-@pytest.mark.parametrize("b,k", [(1, 1024), (8, 300), (9, 1024)])
-def test_nms_kernel_matches_plain_exactly(cuda, b, k):
+# kernel B's (B, K): K = 1 and 33 (one word, a ragged word), the serving
+# K = 1024 at b1 / b9 / b32, K = 2048, and the eval's K = 8400 (W = 264 words)
+NMS_SHAPES = [(1, 1), (1, 33), (8, 300), (1, 1024), (9, 1024), (32, 1024), (1, 2048),
+              (8, 8400)]
+
+
+def _nms_inputs(cuda, b, k):
     rng = np.random.default_rng(b * k)
     boxes = torch.from_numpy(_boxes(rng, b, k)).to(cuda)
     alive = torch.from_numpy(rng.random((b, k)) < 0.8).to(cuda)
-    alive[-1] = False  # an all-dead image
-    for thr in (0.5, 0.3):
+    if b > 1:
+        alive[-1] = False  # an all-dead image
+    return boxes, alive
+
+
+@pytest.mark.parametrize("b,k", NMS_SHAPES)
+def test_nms_kernel_matches_plain_exactly(cuda, b, k):
+    boxes, alive = _nms_inputs(cuda, b, k)
+    for thr in (0.5, 0.3, 0.7):
         before = cuda_nms.LAUNCHES
         keep = cuda_nms.greedy_suppress(boxes, alive, thr)
         torch.cuda.synchronize()
         assert cuda_nms.LAUNCHES == before + 1
         ref = cuda_nms.greedy_suppress_plain(boxes, alive, thr)
         assert torch.equal(keep, ref)
-        assert not keep[-1].any()
+        if b > 1:
+            assert not keep[-1].any()
+
+
+@pytest.mark.parametrize("b,k", NMS_SHAPES)
+def test_nms_kernel_mask_words_match_plain(cuda, b, k):
+    """Phase 1's words, in the kernel's layout, equal suppress_mask_plain's
+    wherever the scan reads them, and the plain scan over the kernel's
+    words gives the kernel's keep mask."""
+    boxes, alive = _nms_inputs(cuda, b, k)
+    for thr in (0.5, 0.3):
+        keep, mask = cuda_nms.greedy_suppress_with_mask(boxes, alive, thr)
+        torch.cuda.synchronize()
+        ref = cuda_nms.suppress_mask_plain(boxes, alive, thr)
+        reads = cuda_nms.scan_reads(alive)
+        assert mask.shape == ref.shape
+        assert torch.equal(mask[reads], ref[reads])
+        assert torch.equal(cuda_nms.scan_keep_plain(mask, alive), keep)
+
+
+def test_nms_kernel_past_whole_block_staging(cuda):
+    """K = 30,000: two whole 32-row blocks (W = 940 words) no longer fit
+    the scan's shared memory, so it stages 128-word chunks of each row."""
+    rng = np.random.default_rng(30000)
+    cxy = rng.uniform(0, 4000, (1, 30000, 2))  # sparse: many candidates kept
+    wh = rng.uniform(20, 90, (1, 30000, 2))
+    boxes = torch.from_numpy(np.concatenate([cxy - wh / 2, cxy + wh / 2], -1)
+                             .astype(np.float32)).to(cuda)
+    alive = torch.from_numpy(rng.random((1, 30000)) < 0.8).to(cuda)
+    assert cuda_nms._build.load_library().nms_scan_smem(30000) > 0
+    keep, mask = cuda_nms.greedy_suppress_with_mask(boxes, alive, 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(keep, cuda_nms.greedy_suppress_plain(boxes, alive, 0.5))
+    reads = cuda_nms.scan_reads(alive)
+    assert torch.equal(mask[reads], cuda_nms.suppress_mask_plain(boxes, alive, 0.5)[reads])
+
+
+@pytest.mark.parametrize("b,k", [(8, 1024), (1, 8400)])
+def test_nms_kernel_two_launches_bit_identical(cuda, b, k):
+    boxes, alive = _nms_inputs(cuda, b, k)
+    k1, m1 = cuda_nms.greedy_suppress_with_mask(boxes, alive, 0.5)
+    k2, m2 = cuda_nms.greedy_suppress_with_mask(boxes, alive, 0.5)
+    torch.cuda.synchronize()
+    reads = cuda_nms.scan_reads(alive)
+    assert torch.equal(k1, k2) and torch.equal(m1[reads], m2[reads])
+
+
+@pytest.mark.parametrize("topk", [1024, 2048])
+def test_batched_nms_kernel_matches_plain(cuda, topk):
+    """batched_nms on 2 images of 8400 anchors, all above conf 0.001: every
+    output field equal between the kernel and the plain suppression, past
+    the old kernel's K = 1024."""
+    from dcfa_yolo_tpu_torch.ops.nms import batched_nms
+
+    rng = np.random.default_rng(topk)
+    boxes = torch.from_numpy(_boxes(rng, 2, 8400) * 8).to(cuda)
+    scores = torch.from_numpy((rng.integers(1, 65, (2, 8400)) / 64).astype(np.float32)).to(cuda)
+    classes = torch.from_numpy(rng.integers(0, 2, (2, 8400)).astype(np.int32)).to(cuda)
+    kw = dict(conf_thres=0.001, iou_thres=0.5, pre_nms_topk=topk, max_det=300)
+    rk = batched_nms(boxes, scores, classes, backend="kernel", **kw)
+    rp = batched_nms(boxes, scores, classes, backend="plain", **kw)
+    for name in rk._fields:
+        assert torch.equal(getattr(rk, name), getattr(rp, name)), name
+    assert rk.valid.any()
 
 
 @pytest.mark.parametrize("shape", EDGE_SHAPES + [(16, 640, 640)])

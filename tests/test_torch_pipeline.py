@@ -192,13 +192,19 @@ def test_detect_batch_bf16_kernel_stem_matches_jax_pallas_e():
     assert (cuda_stem.LAUNCHES, cuda_nms.LAUNCHES) == launches
 
 
-def test_resolve_stem():
+def test_resolve_stem(monkeypatch):
+    """'auto' picks kernel A on an sm_90 card wherever the model fits it;
+    on another card it keeps the plain graph and an explicit kernel request
+    raises, naming sm_90.  On the CPU an explicit request runs the kernel's
+    plain version."""
     ok = ModelConfig(num_classes=1, phi="n", compute_dtype="bfloat16")
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda device=None: (9, 0))
     assert resolve_stem("auto", ok, cuda) == "kernel"
     assert resolve_stem("auto", ok, cpu) == "plain"
     for name in ("kernel", "pallas", "pallas_d", "pallas_e", "pallas_f"):
         assert resolve_stem(name, ok, cpu) == "kernel"
+        assert resolve_stem(name, ok, cuda) == "kernel"
     assert resolve_stem("xla", ok, cuda) == "plain"
     for bad in (ModelConfig(num_classes=1, phi="s", compute_dtype="bfloat16"),
                 ModelConfig(num_classes=1, phi="n"),
@@ -209,3 +215,10 @@ def test_resolve_stem():
             resolve_stem("kernel", bad, cuda)
     with pytest.raises(ValueError):
         resolve_stem("fast", ok, cuda)
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda device=None: (8, 0))
+    assert resolve_stem("auto", ok, cuda) == "plain"
+    assert resolve_stem("xla", ok, cuda) == "plain"
+    assert resolve_stem("kernel", ok, cpu) == "kernel"
+    for name in ("kernel", "pallas_e"):
+        with pytest.raises(ValueError, match="sm_90"):
+            resolve_stem(name, ok, cuda)

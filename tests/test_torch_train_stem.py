@@ -190,6 +190,25 @@ def test_module_matches_jax_pallas_module(backend):
                                    atol=1e-4 * np.abs(ref).max())
 
 
+@pytest.mark.parametrize("device,cap,ok", [("cuda", (9, 0), True), ("cuda:0", (9, 0), True),
+                                           ("cuda", (8, 0), False), ("cuda", (8, 9), False),
+                                           ("cuda", (10, 0), False), ("cpu", (9, 0), False)])
+def test_kernels_supported(monkeypatch, device, cap, ok):
+    """The one predicate every `auto` resolver shares: the library holds
+    sm_90a code only, so a CUDA device of capability (9, 0); require_kernels
+    raises elsewhere, naming sm_90."""
+    from dcfa_yolo_tpu_torch.device import kernels_supported, require_kernels
+
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda device=None: cap)
+    assert kernels_supported(torch.device(device)) is ok
+    assert kernels_supported(device) is ok
+    if ok:
+        require_kernels(device, "kernel B")
+    else:
+        with pytest.raises(ValueError, match="sm_90"):
+            require_kernels(device, "kernel B")
+
+
 def test_resolver(monkeypatch):
     cpu = torch.device("cpu")
     resolve = cuda_stem_train.resolve_train_stem
