@@ -2,7 +2,9 @@
 // (stem_eval.cu, the fused eval stem) and kernel C (stem_train.cu, the fused
 // train stem).  Both compute conv3x3 s1 (3 -> 16) over 8x16 pooled pixels a
 // tile, keep the 17x33 conv tile in shared memory and pool it 3x3 s2 pad 1;
-// only the pooled maps (and C's per-CTA sums) reach device memory.
+// only the pooled maps (and C's per-CTA sums) reach device memory.  The stem
+// split probe's conv and dblbuf variants (stem_probe.cu) run kernel A's walk
+// (eval_walk) with their own finish.
 //
 // What is shared:
 //   * the tile geometry and the persistent tile walk: a fixed grid of CTAs
@@ -533,6 +535,79 @@ __device__ __forceinline__ void sums_write(const A (&sum)[N], const A (&sq)[N],
   }
 }
 
+// ---- kernel A's walk (stem_eval.cu; the probe's conv and dblbuf) -------------
+
+constexpr int ICB = IC + 1;     // staged canvas cols, from the even column x0 - 1
+constexpr int WORDS = ICB / 2;  // 4-byte copies per staged row
+constexpr int EVAL_SCS = 24;    // conv tile: bf16 elements per position (16 used)
+
+// stage value (ci, r, c) of the tile (canvas row y0 + r, col x0 + c) sits at
+// ci*IR*ICB + r*ICB + c + 1: row r starts at the even column x0 - 1
+typedef StageLayout<IR * ICB, ICB, 1, 1> EvalLayout;
+
+struct EvalSmem {
+  alignas(16) bf16 conv[2][NPOS * EVAL_SCS];
+  alignas(16) bf16 stage[2][3 * IR * ICB];
+};
+
+// The tile's canvas rows y0 .. y0 + IR - 1, cols x0 - 1 .. x0 + IC - 1, by
+// 4-byte cp.async (canvas rows are W + 2 elements: only 4 bytes align).
+// Pairs outside the canvas are zero-filled; gx and W + 2 are even, so a pair
+// lies wholly inside or outside.  Thread tid < 14 * WORDS copies word
+// tid % WORDS of staged rows (ci, r) = tid / WORDS, + 14, ... (3 * IR rows).
+__device__ __forceinline__ void stage_canvas(const bf16* __restrict__ img, bf16* dst, int y0,
+                                             int x0, int H2, int W2) {
+  constexpr int GROUPS = THREADS / WORDS;
+  if (threadIdx.x >= GROUPS * WORDS) return;
+  const int w = threadIdx.x % WORDS;
+  const int gx = x0 - 1 + 2 * w;
+  const bool col_ok = gx >= 0 && gx < W2;
+  for (int row = threadIdx.x / WORDS; row < 3 * IR; row += GROUPS) {
+    const int ci = row / IR, gy = y0 + row % IR;
+    const bool ok = col_ok && gy >= 0 && gy < H2;
+    const bf16* src = ok ? img + ((size_t)ci * H2 + gy) * W2 + gx : img;
+    cp_async<4>(dst + row * ICB + 2 * w, src, ok);
+  }
+}
+
+// Kernel A's persistent walk over the canvas (B, 3, H+2, W+2) bf16: each
+// tile staged by stage_canvas, convolved on the tensor cores with the bias
+// in K row 27 and rounded to bf16 into a conv tile (positions outside the
+// image hold -inf, the pool's padding), then finish(t, conv tile) in the
+// next step.  A's finish is pool_max_relu<EVAL_SCS>.
+template <class Finish>
+__device__ __forceinline__ void eval_walk(const bf16* __restrict__ canvas,
+                                          const bf16* __restrict__ weight,
+                                          const float* __restrict__ bias, int B, int H, int W,
+                                          EvalSmem& sm, Finish&& finish) {
+  const int tiles_x = tiles_x_of(W), tiles_y = tiles_y_of(H);
+  const int H2 = H + 2, W2 = W + 2;
+  const size_t img_elems = (size_t)3 * H2 * W2;
+
+  MmaOperands ops;
+  mma_operands<EvalLayout>(weight, bias, ops);
+
+  walk_tiles<2>(
+      B, tiles_x, tiles_y,
+      [&](const Tile& t, int buf) {
+        stage_canvas(canvas + t.b * img_elems, sm.stage[buf], 2 * t.pr0 - 1, 2 * t.pc0 - 1,
+                     H2, W2);
+      },
+      [&](const Tile& t, int sbuf, int cbuf) {
+        const int y0 = 2 * t.pr0 - 1, x0 = 2 * t.pc0 - 1;
+        bf16* conv = sm.conv[cbuf];
+        conv_tile_mma<EvalLayout>(
+            sm.stage[sbuf], ops, [&](int p, int ch, float v0, float v1, float v2, float v3) {
+              const int y = y0 + p / CC, x = x0 + p % CC;
+              const bool in = y >= 0 && y < H && x >= 0 && x < W;
+              uint32_t* dst = reinterpret_cast<uint32_t*>(conv + p * EVAL_SCS);
+              dst[ch / 2] = in ? pack2(v0, v1) : BF16_NEG_INF2;
+              dst[ch / 2 + 4] = in ? pack2(v2, v3) : BF16_NEG_INF2;
+            });
+      },
+      [&](const Tile& t, int buf) { finish(t, sm.conv[buf]); });
+}
+
 // ---- host side -------------------------------------------------------------
 
 // info: registers, local (stack) bytes a thread, static and dynamic shared
@@ -564,6 +639,21 @@ int kernel_info(K kernel, int dyn_smem, int* info) {
 // (ops/stem_core.py::num_ctas) from kernel_info's resident count.
 inline bool grid_ok(int n_cta, int B, int H, int W) {
   return n_cta >= 1 && n_cta <= B * tiles_x_of(W) * tiles_y_of(H);
+}
+
+// Launch a kernel on eval_walk (A, the probe's conv and dblbuf) on the
+// persistent grid of n_cta CTAs; returns a CUDA error code.
+template <class K>
+int launch_eval(K kernel, const void* canvas, const void* weight, const void* bias, void* out,
+                int B, int H, int W, int n_cta, void* stream) {
+  if (!grid_ok(n_cta, B, H, W)) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = static_cast<int>(sizeof(EvalSmem));
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<n_cta, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(canvas), static_cast<const bf16*>(weight),
+      static_cast<const float*>(bias), static_cast<bf16*>(out), B, H, W);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace stem

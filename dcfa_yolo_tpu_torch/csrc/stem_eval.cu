@@ -36,7 +36,8 @@
 // they convolve tile k, one barrier a tile; the conv tiles in shared memory
 // at a 48-byte position stride, so that the pool's 16-byte reads of
 // neighbouring windows fall in distinct banks.  62 KB of shared memory a
-// CTA (dynamic).
+// CTA (dynamic).  The walk (staging, conv, smem layout) is eval_walk in
+// stem_core.cuh, which the probe's conv and dblbuf kernels share.
 
 #include "stem_core.cuh"
 
@@ -44,72 +45,15 @@ namespace {
 
 using namespace stem;
 
-constexpr int ICB = IC + 1;  // staged canvas cols, from the even column x0 - 1
-constexpr int WORDS = ICB / 2;  // 4-byte copies per staged row
-constexpr int SCS = 24;      // conv tile: bf16 elements per position (16 used)
-
-// stage value (ci, r, c) of the tile (canvas row y0 + r, col x0 + c) sits at
-// ci*IR*ICB + r*ICB + c + 1: row r starts at the even column x0 - 1
-typedef StageLayout<IR * ICB, ICB, 1, 1> EvalLayout;
-
-struct EvalSmem {
-  alignas(16) bf16 conv[2][NPOS * SCS];
-  alignas(16) bf16 stage[2][3 * IR * ICB];
-};
-
-// The tile's canvas rows y0 .. y0 + IR - 1, cols x0 - 1 .. x0 + IC - 1, by
-// 4-byte cp.async (canvas rows are W + 2 elements: only 4 bytes align).
-// Pairs outside the canvas are zero-filled; gx and W + 2 are even, so a pair
-// lies wholly inside or outside.  Thread tid < 14 * WORDS copies word
-// tid % WORDS of staged rows (ci, r) = tid / WORDS, + 14, ... (3 * IR rows).
-__device__ __forceinline__ void stage_tile(const bf16* __restrict__ img, bf16* dst, int y0,
-                                           int x0, int H2, int W2) {
-  constexpr int GROUPS = THREADS / WORDS;
-  if (threadIdx.x >= GROUPS * WORDS) return;
-  const int w = threadIdx.x % WORDS;
-  const int gx = x0 - 1 + 2 * w;
-  const bool col_ok = gx >= 0 && gx < W2;
-  for (int row = threadIdx.x / WORDS; row < 3 * IR; row += GROUPS) {
-    const int ci = row / IR, gy = y0 + row % IR;
-    const bool ok = col_ok && gy >= 0 && gy < H2;
-    const bf16* src = ok ? img + ((size_t)ci * H2 + gy) * W2 + gx : img;
-    cp_async<4>(dst + row * ICB + 2 * w, src, ok);
-  }
-}
-
 __global__ void __launch_bounds__(THREADS, 3)
 stem_eval_kernel(const bf16* __restrict__ canvas, const bf16* __restrict__ weight,
                  const float* __restrict__ bias, bf16* __restrict__ out, int B, int H,
                  int W) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  EvalSmem& sm = *reinterpret_cast<EvalSmem*>(smem_raw);
-  const int tiles_x = tiles_x_of(W), tiles_y = tiles_y_of(H);
-  const int H2 = H + 2, W2 = W + 2;
-  const size_t img_elems = (size_t)3 * H2 * W2;
-
-  MmaOperands ops;
-  mma_operands<EvalLayout>(weight, bias, ops);
-
-  walk_tiles<2>(
-      B, tiles_x, tiles_y,
-      [&](const Tile& t, int buf) {
-        stage_tile(canvas + t.b * img_elems, sm.stage[buf], 2 * t.pr0 - 1, 2 * t.pc0 - 1, H2,
-                   W2);
-      },
-      [&](const Tile& t, int sbuf, int cbuf) {
-        // conv positions outside the image are the pool's padding: -inf
-        const int y0 = 2 * t.pr0 - 1, x0 = 2 * t.pc0 - 1;
-        bf16* conv = sm.conv[cbuf];
-        conv_tile_mma<EvalLayout>(
-            sm.stage[sbuf], ops, [&](int p, int ch, float v0, float v1, float v2, float v3) {
-              const int y = y0 + p / CC, x = x0 + p % CC;
-              const bool in = y >= 0 && y < H && x >= 0 && x < W;
-              uint32_t* dst = reinterpret_cast<uint32_t*>(conv + p * SCS);
-              dst[ch / 2] = in ? pack2(v0, v1) : BF16_NEG_INF2;
-              dst[ch / 2 + 4] = in ? pack2(v2, v3) : BF16_NEG_INF2;
+  eval_walk(canvas, weight, bias, B, H, W, *reinterpret_cast<EvalSmem*>(smem_raw),
+            [&](const Tile& t, const bf16* conv) {
+              pool_max_relu<EVAL_SCS>(conv, out, t, H / 2, W / 2);
             });
-      },
-      [&](const Tile& t, int buf) { pool_max_relu<SCS>(sm.conv[buf], out, t, H / 2, W / 2); });
 }
 
 }  // namespace
@@ -122,15 +66,7 @@ extern "C" int stem_eval_info(int* info) {
 
 extern "C" int stem_eval_bf16(const void* canvas, const void* weight, const void* bias,
                               void* out, int B, int H, int W, int n_cta, void* stream) {
-  if (!grid_ok(n_cta, B, H, W)) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = static_cast<int>(sizeof(EvalSmem));
-  cudaError_t e = cudaFuncSetAttribute(stem_eval_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  stem_eval_kernel<<<n_cta, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(canvas), static_cast<const bf16*>(weight),
-      static_cast<const float*>(bias), static_cast<bf16*>(out), B, H, W);
-  return static_cast<int>(cudaGetLastError());
+  return launch_eval(stem_eval_kernel, canvas, weight, bias, out, B, H, W, n_cta, stream);
 }
 
 extern "C" const char* dcfa_error_string(int code) {

@@ -1,72 +1,60 @@
 // Stem split probe for Hopper (sm_90a): variants of the fused eval stem
 // (kernel A, csrc/stem_eval.cu) that drop or overlap one of its phases, so
 // that their times split kernel A's time into tile load, conv and pool tree.
-// "Kernel A" below is its first design (one CTA a tile, the conv as f32
-// FMAs on the CUDA cores), which these variants keep; kernel A itself now
-// sums its conv on the tensor cores (csrc/stem_core.cuh), so dblbuf and pipe
-// agree with it in the v4 class and bit for bit with each other.
 //
 // Replaces the TPU probe kernels of tools/stem_split_probe.py: make_kernel
 // (variants dots, vpu, dblbuf) and pipe_kernel (variant pipe), called by
 // `call`.  The probe's `full` variant is kernel A itself (stem_eval_bf16);
-// this file holds the other four:
-//   conv   (JAX `dots`): load + conv + bf16 round; writes the conv value at
-//          conv position (2i, 2j) of each pooled pixel (i, j), no pool tree,
-//          no ReLU.
+// this file holds the other four.
+//
+// On kernel A's core (stem_core.cuh::eval_walk: the persistent grid, the
+// cp.async double buffer, the tensor-core conv with the bias in K row 27,
+// one barrier a tile; A's arithmetic, so A's conv values bit for bit):
+//   conv   (JAX `dots`): load + conv + bf16 round of the whole 17x33 conv
+//          tile, as A convolves it; its finish writes, for each pooled pixel
+//          (i, j) inside the image, the 16 channels of conv position
+//          (2i, 2j) (tile position (2(i - pr0) + 1, 2(j - pc0) + 1), the
+//          centre of the pixel's pool window, always inside the image) as
+//          32 contiguous bytes: no pool tree, no ReLU.  So relu(conv) <=
+//          full exactly.
+//   dblbuf (JAX `dblbuf`): kernel A itself as its own launch.  On Hopper the
+//          double buffer that JAX dblbuf adds to `full` is A's own schedule
+//          (two stage buffers, two conv tiles), so dblbuf is bit-identical
+//          to full and takes A's time.
+// Kernel A's first design (one CTA a tile, the conv as f32 FMAs on the CUDA
+// cores, reading the weights from shared memory), kept until they are
+// rebuilt on the core:
 //   pool   (JAX `vpu`): load + pool tree + ReLU + stores, with the 27x16 FMAs
 //          of each conv position replaced by the centre tap's three channels
 //          and the bias, bf16(((c0 + c1) + c2) + bias[co]) in f32, which keeps
 //          the whole tile load and the tree live.  (The JAX `vpu` value is an
 //          iota construct for the TPU compiler's layout pass and has no
 //          meaning here.)
-//   dblbuf (JAX `dblbuf`): kernel A with a persistent grid; each CTA walks a
-//          list of tiles and copies the next tile's canvas into a second
-//          shared-memory buffer with cp.async while the current tile runs
-//          conv and pool.  Bit-identical to pipe.
-//   pipe   (JAX `pipe`): kernel A software-pipelined by warp specialisation:
-//          warps 0-3 load and convolve tile k+1 into one of two conv slots
-//          while warps 4-7 pool tile k from the other, ordered by named
-//          barriers (bar.sync / bar.arrive).  Bit-identical to dblbuf.
+//   pipe   (JAX `pipe`): the first design software-pipelined by warp
+//          specialisation: warps 0-3 load and convolve tile k+1 into one of
+//          two conv slots while warps 4-7 pool tile k from the other, ordered
+//          by named barriers (bar.sync / bar.arrive).  It sums in the first
+//          design's fmaf order, so it agrees with full in the v4 class.
 //
-// All four keep kernel A's tile geometry (8x16 pooled pixels per tile, 256
-// threads), its conv arithmetic (f32 FMAs in the same order, so the conv
-// values are bit-identical) and its pool code; only the phase a variant
-// drops or overlaps changes.  Inputs and outputs are kernel A's, so the
-// bytes moved are the same in every variant (pool alone reads no weights):
+// Inputs and outputs are kernel A's, so the bytes moved are the same in
+// every variant (pool alone reads no weights):
 //   canvas (B, 3, H+2, W+2) bf16, weight (16, 3, 3, 3) bf16, bias (16,) f32
 //   out    (B, H/2, W/2, 16) bf16 NHWC; H, W even.
 // Each variant's bound: tools/stem_split_probe.py::variant_bound.
 //
-// Staging.  conv and pool stage the canvas tile as f32, as kernel A does
-// (s_in[3][19][35], 7,980 B).  cp.async copies raw bytes, so dblbuf and pipe
-// stage bf16 and convert at use.  The tile's first canvas column
-// x0 = 2*pc0 - 1 is odd and canvas rows are W+2 elements long, so only
-// 4-byte copies are aligned: each staged row starts at the even column
-// x0 - 1 (36 columns, 18 four-byte copies) and is read shifted by one.
-// Halo pairs outside the canvas are zero-filled (src-size 0).
-// Shared memory per CTA: conv 27,724 B (pool 25,996 B: it never reads the
-// weights); dblbuf 27,952 B (two bf16 input buffers, 8,208 B); pipe 45,904 B
-// (two input buffers and two conv slots).
+// Staging of the first design.  pool stages the canvas tile as f32
+// (s_in[3][19][35], 7,980 B); pipe stages bf16 by cp.async and converts at
+// use, each staged row starting at the even column x0 - 1 as kernel A's
+// does.  Shared memory per CTA: pool 26,000 B; pipe 45,904 B (two input
+// buffers and two conv slots); conv and dblbuf A's EvalSmem (dynamic).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "stem_core.cuh"
 
 namespace {
 
-constexpr int CO = 16;          // stem output channels (phi='n')
-constexpr int TH = 8;           // pooled rows per tile
-constexpr int TW = 16;          // pooled cols per tile
-constexpr int CR = 2 * TH + 1;  // conv rows under the tile's pool windows
-constexpr int CC = 2 * TW + 1;  // conv cols
-constexpr int IR = CR + 2;      // canvas rows incl. the 3x3 halo
-constexpr int IC = CC + 2;      // canvas cols
-constexpr int ICB = IC + 1;     // bf16-staged cols, from the even column x0 - 1
-constexpr int WORDS = ICB / 2;  // 4-byte copies per staged row
-constexpr int THREADS = 256;
+using namespace stem;
+
 constexpr int HALF = THREADS / 2;
-static_assert(TH * TW * 2 == THREADS, "one pool item per (pooled pixel, 8 channels)");
 
 // named barriers of the pipe kernel (0 is __syncthreads)
 constexpr int BAR_CONV = 1;   // the 128 conv threads among themselves
@@ -75,13 +63,8 @@ constexpr int BAR_EMPTY = 4;  // +slot: a conv slot is read (pool -> conv)
 
 enum Variant { kConv = 1, kPool = 2, kDblbuf = 3, kPipe = 4 };
 
-typedef __nv_bfloat16 bf16;
 typedef bf16 ConvTile[CR * CC][CO];
 typedef bf16 StageBuf[3][IR][ICB];
-
-struct Tile {
-  int b, pr0, pc0;
-};
 
 __device__ __forceinline__ Tile tile_of(int t, int tiles_x, int tiles_y) {
   const int per_img = tiles_x * tiles_y;
@@ -98,17 +81,6 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
 __device__ __forceinline__ void cp_async_wait_prev() {  // all but the newest group
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
@@ -122,7 +94,7 @@ __device__ __forceinline__ void load_weights(const bf16* __restrict__ weight,
   if (tid < CO) s_b[tid] = bias[tid];
 }
 
-// kernel A's staging: the tile plus halo as f32, zeros outside the canvas
+// the first design's staging: the tile plus halo as f32, zeros outside the canvas
 __device__ __forceinline__ void load_tile_f32(const bf16* __restrict__ img,
                                               float (*s_in)[IR][IC], int y0, int x0,
                                               int H2, int W2, int tid) {
@@ -147,7 +119,7 @@ __device__ __forceinline__ void stage_tile(const bf16* __restrict__ img, StageBu
     // gx and W2 are even: the pair (gx, gx+1) is wholly inside or outside
     const bool ok = gy >= 0 && gy < H2 && gx >= 0 && gx < W2;
     const bf16* src = ok ? img + ((size_t)ci * H2 + gy) * W2 + gx : img;
-    cp_async4(&dst[ci][r][2 * w], src, ok);
+    cp_async<4>(&dst[ci][r][2 * w], src, ok);
   }
 }
 
@@ -165,8 +137,8 @@ struct Bf16Src {
   }
 };
 
-// kernel A's first conv tile: one thread per conv position,
-// all 16 channels; positions outside the image are the pool's -inf padding
+// the first design's conv tile: one thread per conv position, all 16
+// channels; positions outside the image are the pool's -inf padding
 template <class Src>
 __device__ __forceinline__ void conv_tile(const Src& src, const float (*s_w)[CO],
                                           const float* s_b, ConvTile& s_conv, int y0,
@@ -218,8 +190,8 @@ __device__ __forceinline__ void bias_tile(const Src& src, const float* s_b,
   }
 }
 
-// kernel A's pool tree and store for one item =
-// (pooled pixel, half of the channels)
+// the first design's pool tree and store for one item = (pooled pixel,
+// half of the channels)
 __device__ __forceinline__ void pool_store(const ConvTile& s_conv,
                                            bf16* __restrict__ out, const Tile& t,
                                            int Hp, int Wp, int item) {
@@ -246,29 +218,43 @@ __device__ __forceinline__ void pool_store(const ConvTile& s_conv,
   *dst = *reinterpret_cast<const uint4*>(res);
 }
 
-// the conv variant's store: conv position (2*pr, 2*pc), the centre of the
-// pooled pixel's window, as it is (no max, no ReLU)
-__device__ __forceinline__ void sample_store(const ConvTile& s_conv,
-                                             bf16* __restrict__ out, const Tile& t,
-                                             int Hp, int Wp, int item) {
-  const int pix = item >> 1, half = item & 1;
-  const int lr = pix / TW, lc = pix % TW;
-  const int pr = t.pr0 + lr, pc = t.pc0 + lc;
-  if (pr >= Hp || pc >= Wp) return;
-  const uint4 v = *reinterpret_cast<const uint4*>(
-      s_conv[(2 * lr + 1) * CC + 2 * lc + 1] + half * 8);
-  *reinterpret_cast<uint4*>(out + (((size_t)t.b * Hp + pr) * Wp + pc) * CO +
-                            half * 8) = v;
+// conv: kernel A's walk, finished by a centre sample in place of the pool
+// tree.  Conv position (2*pr, 2*pc), tile position (2*lr + 1, 2*lc + 1), is
+// inside the image (2*pr < H, 2*pc < W), so it is never the -inf padding;
+// the two halves of a pixel write its 32 contiguous bytes.
+__global__ void __launch_bounds__(THREADS, 3)
+probe_conv_kernel(const bf16* __restrict__ canvas, const bf16* __restrict__ weight,
+                  const float* __restrict__ bias, bf16* __restrict__ out, int B, int H,
+                  int W) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int Hp = H / 2, Wp = W / 2;
+  eval_walk(canvas, weight, bias, B, H, W, *reinterpret_cast<EvalSmem*>(smem_raw),
+            [&](const Tile& t, const bf16* conv) {
+              const PoolItem it(t);
+              if (it.pr >= Hp || it.pc >= Wp) return;
+              Pack8<bf16> v;
+              v.load(conv + it.at<EVAL_SCS, bf16>(1, 1));
+              v.store(out + it.out_index<bf16>(t.b, Hp, Wp));
+            });
 }
 
-// conv and pool: kernel A with one phase dropped (one tile per CTA)
-template <int V>
-__global__ void __launch_bounds__(THREADS)
-probe_single_kernel(const bf16* __restrict__ canvas, const bf16* __restrict__ weight,
-                    const float* __restrict__ bias, bf16* __restrict__ out, int H,
+// dblbuf: kernel A as a launch of its own
+__global__ void __launch_bounds__(THREADS, 3)
+probe_dblbuf_kernel(const bf16* __restrict__ canvas, const bf16* __restrict__ weight,
+                    const float* __restrict__ bias, bf16* __restrict__ out, int B, int H,
                     int W) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  eval_walk(canvas, weight, bias, B, H, W, *reinterpret_cast<EvalSmem*>(smem_raw),
+            [&](const Tile& t, const bf16* conv) {
+              pool_max_relu<EVAL_SCS>(conv, out, t, H / 2, W / 2);
+            });
+}
+
+// pool: the first design with the conv replaced (one tile per CTA)
+__global__ void __launch_bounds__(THREADS)
+probe_pool_kernel(const bf16* __restrict__ canvas, const float* __restrict__ bias,
+                  bf16* __restrict__ out, int H, int W) {
   __shared__ float s_in[3][IR][IC];
-  __shared__ float s_w[27][CO];
   __shared__ float s_b[CO];
   __shared__ __align__(16) ConvTile s_conv;
 
@@ -277,58 +263,12 @@ probe_single_kernel(const bf16* __restrict__ canvas, const bf16* __restrict__ we
                static_cast<int>(blockIdx.x) * TW};
   const int H2 = H + 2, W2 = W + 2;
   const int y0 = 2 * t.pr0 - 1, x0 = 2 * t.pc0 - 1;
-  load_weights(weight, bias, s_w, s_b, tid);
+  if (tid < CO) s_b[tid] = bias[tid];
   load_tile_f32(canvas + (size_t)t.b * 3 * H2 * W2, s_in, y0, x0, H2, W2, tid);
   __syncthreads();
-  const F32Src src{s_in};
-  if (V == kConv)
-    conv_tile(src, s_w, s_b, s_conv, y0, x0, H, W, tid, THREADS);
-  else
-    bias_tile(src, s_b, s_conv, y0, x0, H, W, tid, THREADS);
+  bias_tile(F32Src{s_in}, s_b, s_conv, y0, x0, H, W, tid, THREADS);
   __syncthreads();
-  if (V == kConv)
-    sample_store(s_conv, out, t, H / 2, W / 2, tid);
-  else
-    pool_store(s_conv, out, t, H / 2, W / 2, tid);
-}
-
-// dblbuf: persistent CTAs, the next tile's canvas in flight during this one
-__global__ void __launch_bounds__(THREADS, 1)
-probe_dblbuf_kernel(const bf16* __restrict__ canvas, const bf16* __restrict__ weight,
-                    const float* __restrict__ bias, bf16* __restrict__ out, int H, int W,
-                    int tiles_x, int tiles_y, int n_tiles) {
-  __shared__ __align__(16) StageBuf s_stage[2];
-  __shared__ float s_w[27][CO];
-  __shared__ float s_b[CO];
-  __shared__ __align__(16) ConvTile s_conv;
-
-  const int tid = threadIdx.x;
-  const int H2 = H + 2, W2 = W + 2;
-  const size_t img_elems = (size_t)3 * H2 * W2;
-  load_weights(weight, bias, s_w, s_b, tid);
-  int tile = blockIdx.x;
-  if (tile < n_tiles) {
-    const Tile t = tile_of(tile, tiles_x, tiles_y);
-    stage_tile(canvas + t.b * img_elems, s_stage[0], 2 * t.pr0 - 1, 2 * t.pc0 - 1, H2,
-               W2, tid, THREADS);
-  }
-  cp_async_commit();
-  for (int buf = 0; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
-    const int next = tile + gridDim.x;
-    if (next < n_tiles) {
-      const Tile tn = tile_of(next, tiles_x, tiles_y);
-      stage_tile(canvas + tn.b * img_elems, s_stage[buf ^ 1], 2 * tn.pr0 - 1,
-                 2 * tn.pc0 - 1, H2, W2, tid, THREADS);
-    }
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();  // this tile's canvas is in; the last pool is done with s_conv
-    const Tile t = tile_of(tile, tiles_x, tiles_y);
-    conv_tile(Bf16Src{&s_stage[buf]}, s_w, s_b, s_conv, 2 * t.pr0 - 1, 2 * t.pc0 - 1, H,
-              W, tid, THREADS);
-    __syncthreads();  // s_conv is written; s_stage[buf] may be refilled
-    pool_store(s_conv, out, t, H / 2, W / 2, tid);
-  }
+  pool_store(s_conv, out, t, H / 2, W / 2, tid);
 }
 
 // pipe: warps 0-3 load and convolve tile k+1 while warps 4-7 pool tile k
@@ -400,30 +340,43 @@ int persistent_grid(K kernel, int n_tiles) {
 
 }  // namespace
 
+// info[5] of the conv (1) or dblbuf (3) kernel, the two on kernel A's walk:
+// registers, stack bytes, static and dynamic shared memory, resident CTAs on
+// the current device; returns a CUDA error code.
+extern "C" int stem_probe_info(int variant, int* info) {
+  const int smem = static_cast<int>(sizeof(EvalSmem));
+  switch (variant) {
+    case kConv:
+      return kernel_info(probe_conv_kernel, smem, info);
+    case kDblbuf:
+      return kernel_info(probe_dblbuf_kernel, smem, info);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // One entry for the four variants (1 conv, 2 pool, 3 dblbuf, 4 pipe); returns
-// the launch's CUDA error code.
+// the launch's CUDA error code.  n_cta is the persistent grid of conv and
+// dblbuf (1 <= n_cta <= tiles, ops/stem_core.py::num_ctas from
+// stem_probe_info's resident count); pool and pipe size their own grids.
 extern "C" int stem_probe_bf16(int variant, const void* canvas, const void* weight,
-                               const void* bias, void* out, int B, int H, int W,
+                               const void* bias, void* out, int B, int H, int W, int n_cta,
                                void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* x = static_cast<const bf16*>(canvas);
   const bf16* w = static_cast<const bf16*>(weight);
   const float* b = static_cast<const float*>(bias);
   bf16* o = static_cast<bf16*>(out);
-  const int tiles_x = (W / 2 + TW - 1) / TW, tiles_y = (H / 2 + TH - 1) / TH;
+  const int tiles_x = tiles_x_of(W), tiles_y = tiles_y_of(H);
   const int n_tiles = B * tiles_x * tiles_y;
   switch (variant) {
     case kConv:
-      probe_single_kernel<kConv><<<dim3(tiles_x, tiles_y, B), THREADS, 0, s>>>(x, w, b, o,
-                                                                               H, W);
-      break;
-    case kPool:
-      probe_single_kernel<kPool><<<dim3(tiles_x, tiles_y, B), THREADS, 0, s>>>(x, w, b, o,
-                                                                               H, W);
-      break;
+      return launch_eval(probe_conv_kernel, canvas, weight, bias, out, B, H, W, n_cta, stream);
     case kDblbuf:
-      probe_dblbuf_kernel<<<persistent_grid(probe_dblbuf_kernel, n_tiles), THREADS, 0,
-                            s>>>(x, w, b, o, H, W, tiles_x, tiles_y, n_tiles);
+      return launch_eval(probe_dblbuf_kernel, canvas, weight, bias, out, B, H, W, n_cta,
+                         stream);
+    case kPool:
+      probe_pool_kernel<<<dim3(tiles_x, tiles_y, B), THREADS, 0, s>>>(x, b, o, H, W);
       break;
     case kPipe:
       probe_pipe_kernel<<<persistent_grid(probe_pipe_kernel, n_tiles), THREADS, 0, s>>>(

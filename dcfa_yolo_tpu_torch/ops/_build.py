@@ -36,7 +36,7 @@ SOURCES = {
     "stem_train.cu": [],
     "stem_probe.cu": [],
 }
-HEADERS = ("stem_core.cuh",)  # included by stem_eval.cu and stem_train.cu
+HEADERS = ("stem_core.cuh",)  # included by stem_eval.cu, stem_train.cu, stem_probe.cu
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_SECONDS: Optional[float] = None
@@ -108,8 +108,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     for fn in (lib.stem_train_bf16, lib.stem_train_f32):
         fn.argtypes = [p, p, p, p, p, i, i, i, i, p]
         fn.restype = i
-    lib.stem_probe_bf16.argtypes = [i, p, p, p, p, i, i, i, p]
+    lib.stem_probe_bf16.argtypes = [i, p, p, p, p, i, i, i, i, p]
     lib.stem_probe_bf16.restype = i
+    lib.stem_probe_info.argtypes = [i, p]
+    lib.stem_probe_info.restype = i
     lib.dcfa_error_string.argtypes = [i]
     lib.dcfa_error_string.restype = ctypes.c_char_p
 
@@ -130,7 +132,13 @@ def load_library() -> ctypes.CDLL:
     return _LIB
 
 
-STEM_KERNELS = ("stem_eval", "stem_train_bf16", "stem_train_f32")
+# the kernels on csrc/stem_core.cuh's persistent walk, whose grids are sized
+# from the card's resident CTAs
+STEM_KERNELS = ("stem_eval", "stem_train_bf16", "stem_train_f32", "stem_probe_conv",
+                "stem_probe_dblbuf")
+# the stem split probe's entry codes (csrc/stem_probe.cu's stem_probe_bf16
+# and stem_probe_info)
+PROBE_CODES = {"conv": 1, "pool": 2, "dblbuf": 3, "pipe": 4}
 _INFO_KEYS = ("registers", "stack_bytes", "static_smem", "dynamic_smem",
               "resident_ctas")
 _INFO: dict = {}
@@ -148,6 +156,8 @@ def stem_kernel_info(name: str, device: torch.device) -> dict:
         with torch.cuda.device(device):
             if name == "stem_eval":
                 rc = lib.stem_eval_info(buf)
+            elif name.startswith("stem_probe_"):
+                rc = lib.stem_probe_info(PROBE_CODES[name[len("stem_probe_"):]], buf)
             else:
                 rc = lib.stem_train_info(int(name == "stem_train_f32"), buf)
         check(rc, f"{name} info")

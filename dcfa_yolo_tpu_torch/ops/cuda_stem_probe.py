@@ -13,16 +13,19 @@ stands for:
 - 'pool'   (`vpu`): tile load + pool tree + ReLU + stores, the conv
   replaced by bf16(((c0 + c1) + c2) + bias[co]), c the canvas channels at
   the centre tap (y+1, x+1);
-- 'dblbuf' (`dblbuf`): kernel A on a persistent grid that copies the next
-  tile's canvas (cp.async) while the current tile computes;
+- 'dblbuf' (`dblbuf`): kernel A with the next tile's canvas copied
+  (cp.async) while the current tile computes;
 - 'pipe'   (`pipe`): kernel A with conv warps working one tile ahead of
   pool warps (warp specialisation, two conv slots).
 
 All take kernel A's inputs (canvas (B, 3, H+2, W+2) bf16, `fold_stem_params`
-weights) and give its output shape (B, H/2, W/2, 16) bf16 NHWC.  The four
-kernels keep kernel A's first design (CUDA-core f32 conv); kernel A now sums
-on the tensor cores, so on the card 'dblbuf' and 'pipe' agree with 'full' in
-the v4 class and bit for bit with each other.  `stem_probe` launches a
+weights) and give its output shape (B, H/2, W/2, 16) bf16 NHWC.  'conv' and
+'dblbuf' run on kernel A's core (`csrc/stem_core.cuh`: tensor-core conv,
+persistent double-buffered walk, grid from `ops/stem_core.py::num_ctas`), so
+'dblbuf' is bit-identical to 'full' (A already double-buffers: it is A as a
+launch of its own) and relu('conv') <= 'full' holds exactly.  'pool' and
+'pipe' keep kernel A's first design (CUDA-core f32 conv, one CTA a tile);
+'pipe' agrees with 'full' in the v4 class.  `stem_probe` launches a
 variant's kernel for a CUDA tensor and uses its plain version (`PLAIN`) only
 for a CPU tensor; `LAUNCHES` counts each new kernel's launches ('full'
 counts in `cuda_stem.LAUNCHES`).
@@ -33,12 +36,15 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from dcfa_yolo_tpu_torch.ops import _build, cuda_stem
+from dcfa_yolo_tpu_torch.device import require_kernels
+from dcfa_yolo_tpu_torch.ops import _build, cuda_stem, stem_core
 from dcfa_yolo_tpu_torch.ops.cuda_stem import STEM_CO, stem_eval_plain
 
 VARIANTS = ("full", "conv", "pool", "dblbuf", "pipe")
-_CODES = {"conv": 1, "pool": 2, "dblbuf": 3, "pipe": 4}  # csrc/stem_probe.cu
+_CODES = _build.PROBE_CODES
+_ON_CORE = ("conv", "dblbuf")  # on kernel A's walk: a persistent grid
 LAUNCHES = {name: 0 for name in _CODES}
+_READY: set = set()  # CUDA device indices that passed require_kernels
 
 
 def conv_plain(canvas: torch.Tensor, weight: torch.Tensor,
@@ -46,6 +52,15 @@ def conv_plain(canvas: torch.Tensor, weight: torch.Tensor,
     """Plain version of 'conv': the float32 conv at the even rows and
     columns (stride 2) plus bias, rounded to bf16, NHWC."""
     y = F.conv2d(canvas.float(), weight.float(), stride=2) + bias.float().view(1, -1, 1, 1)
+    return y.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
+
+
+def conv_gemm_probe(canvas: torch.Tensor, weight: torch.Tensor,
+                    bias: torch.Tensor) -> torch.Tensor:
+    """'conv' in the kernel's arithmetic: kernel A's GEMM form of the conv
+    (`stem_core.conv_gemm`, the bias in K row 27) at the even rows and
+    columns, rounded to bf16, NHWC.  Same contract as `conv_plain`."""
+    y = stem_core.conv_gemm(canvas, weight, bias, padding=0)[..., ::2, ::2]
     return y.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
 
 
@@ -68,8 +83,9 @@ PLAIN = {"full": stem_eval_plain, "conv": conv_plain, "pool": pool_plain,
 def stem_probe(variant: str, canvas: torch.Tensor, weight: torch.Tensor,
                bias: torch.Tensor) -> torch.Tensor:
     """Run one probe variant on kernel A's inputs → (B, H/2, W/2, 16) bf16.
-    Launches the variant's CUDA kernel for a CUDA tensor; a CPU tensor
-    takes the variant's plain version."""
+    Launches the variant's CUDA kernel for a CUDA tensor (raising, naming
+    sm_90, on a card the kernels are not built for); a CPU tensor takes the
+    variant's plain version."""
     if variant == "full":
         return cuda_stem.stem_eval(canvas, weight, bias)
     if variant not in _CODES:
@@ -77,14 +93,21 @@ def stem_probe(variant: str, canvas: torch.Tensor, weight: torch.Tensor,
     b, h, w = cuda_stem.check_stem_inputs(canvas, weight, bias)
     if canvas.device.type == "cpu":
         return PLAIN[variant](canvas, weight, bias)
-    out = torch.empty((b, h // 2, w // 2, STEM_CO), dtype=torch.bfloat16,
-                      device=canvas.device)
+    dev = canvas.device
+    if dev.index not in _READY:
+        require_kernels(dev, f"stem_probe {variant!r}")
+        _READY.add(dev.index)
+    lib = _build.load_library()
+    out = torch.empty((b, h // 2, w // 2, STEM_CO), dtype=torch.bfloat16, device=dev)
     if b == 0:
         return out
-    lib = _build.load_library()
+    n_cta = 0  # pool and pipe size their own grids
+    if variant in _ON_CORE:
+        resident = _build.stem_kernel_info(f"stem_probe_{variant}", dev)["resident_ctas"]
+        n_cta = stem_core.num_ctas(b, h, w, resident)
     rc = lib.stem_probe_bf16(_CODES[variant], canvas.data_ptr(), weight.data_ptr(),
-                             bias.data_ptr(), out.data_ptr(), b, h, w,
-                             torch.cuda.current_stream(canvas.device).cuda_stream)
+                             bias.data_ptr(), out.data_ptr(), b, h, w, n_cta,
+                             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, f"stem_probe {variant}")
     LAUNCHES[variant] += 1
     return out

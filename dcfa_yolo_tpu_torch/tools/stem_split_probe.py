@@ -11,9 +11,12 @@ pool (load + pool tree, the centre tap's three channels plus the bias in
 place of the conv), dblbuf (persistent CTAs, next tile's canvas copied
 during this one) and pipe (conv warps one tile ahead of pool warps).  If
 conv + pool ≈ full, the phases run one after the other and overlapping
-them is the lever; if conv ≈ full, the conv is.  The four variants keep
-kernel A's first design (CUDA-core conv, one CTA a tile), so they split
-that design's time, not the present kernel A's.
+them is the lever; if conv ≈ full, the conv is.  conv and dblbuf run on
+kernel A's core (tensor-core conv, persistent double-buffered walk): conv
+is A with a centre sample in place of the pool tree, dblbuf is A itself,
+since A already double-buffers.  pool and pipe keep A's first design
+(CUDA-core conv, one CTA a tile) until they are rebuilt on the core, so the
+split line mixes a conv on the core with a pool of the first design.
 
 Inputs are made from seed 0 as in the JAX probe: a uint8 image batch in a
 zero-bordered canvas, a N(0, 0.1) kernel and an identity BN.  For each
@@ -21,8 +24,8 @@ variant it prints the time per call (`utils/profiling.py::device_ms`:
 CUDA events around `iters` launches after a warm-up; on the CPU, with
 `--device cpu`, the host clock of the plain versions), µs per image, its
 bound on the H100 (`variant_bound`) and, for dblbuf and pipe, whether the
-output is bit-identical to full (on the card it is not: see `run`).  Runs on
-the card unless `--device cpu` is given.
+output is bit-identical to full (see `run`).  Runs on the card unless
+`--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -81,15 +84,18 @@ def run(batch: int = 128, size: int = 640, device="cuda", iters: int = 20
     bound_by, and bit_identical_to_full for dblbuf and pipe}}.
 
     `bit_identical_to_full` is reported, not required.  On the card it is
-    False: kernel A ('full') sums its conv on the tensor cores, while dblbuf
-    and pipe keep kernel A's first CUDA-core fmaf order, so they agree with
-    it in the v4 class (and bit for bit with each other).  On the CPU every
-    variant is its plain version and it is True."""
-    from dcfa_yolo_tpu_torch.device import resolve_device
+    True for dblbuf (kernel A's own code as a launch of its own, as JAX
+    dblbuf is bit-identical to full) and False for pipe, which keeps kernel
+    A's first CUDA-core fmaf order and agrees with full in the v4 class.  On
+    the CPU every variant is its plain version and it is True.  On a CUDA
+    device that is not sm_90 it raises before it makes any input."""
+    from dcfa_yolo_tpu_torch.device import require_kernels, resolve_device
     from dcfa_yolo_tpu_torch.ops.cuda_stem_probe import VARIANTS, stem_probe
     from dcfa_yolo_tpu_torch.utils.profiling import device_ms
 
     dev = resolve_device(device)
+    if dev.type == "cuda":
+        require_kernels(dev, "the stem split probe")
     canvas, w, bias = make_inputs(batch, size, dev)
     ref = stem_probe("full", canvas, w, bias)
     res = {}

@@ -12,7 +12,10 @@ summation order then differs, so 'full' is held in the v4 class
 (tests/test_pallas_stem.py) and 'conv' against JAX 'dots' within one bf16
 step; 'pool' has no JAX counterpart with a meaning (its `vpu` value is an
 iota construct) and is held against a numpy evaluation of its own
-definition.
+definition.  `conv_gemm_probe`, 'conv' in the card kernel's GEMM form, is
+held against `conv_plain` in the v4 class and against JAX 'dots' within one
+bf16 step.  The sm_90 gate of `stem_probe` and of the probe's entry point is
+checked with `torch.cuda.get_device_capability` monkeypatched.
 """
 
 from __future__ import annotations
@@ -84,16 +87,53 @@ def test_full_plain_matches_jax(port_inputs, jax_call, variant):
     assert (mine == ref).mean() >= 0.999
 
 
-def test_conv_plain_matches_jax_dots(port_inputs, jax_call):
-    """The conv sample at (2i, 2j) against JAX 'dots' (its even-row,
-    even-column conv output), within one bf16 step of the larger value: the
-    f32 sums run in another order before the bf16 rounding."""
-    mine = csp.conv_plain(*port_inputs).float().numpy()
-    ref = jax_call("dots")
+def _within_one_bf16_step(mine, ref):
     step = 2.0 ** (np.floor(np.log2(np.maximum(np.maximum(abs(mine), abs(ref)),
                                                 2.0 ** -126))) - 7)
     assert np.all(np.abs(mine - ref) <= step)
     assert np.abs(mine).max() > 0.5  # a live conv, not a row of zeros
+
+
+def test_conv_plain_matches_jax_dots(port_inputs, jax_call):
+    """The conv sample at (2i, 2j) against JAX 'dots' (its even-row,
+    even-column conv output), within one bf16 step of the larger value: the
+    f32 sums run in another order before the bf16 rounding."""
+    _within_one_bf16_step(csp.conv_plain(*port_inputs).float().numpy(), jax_call("dots"))
+
+
+def test_conv_gemm_probe_matches_jax_dots(port_inputs, jax_call):
+    """The card kernel's arithmetic for 'conv' (K = 32 GEMM, the bias in
+    row 27) against JAX 'dots', at the tolerance of
+    test_conv_plain_matches_jax_dots."""
+    _within_one_bf16_step(csp.conv_gemm_probe(*port_inputs).float().numpy(),
+                          jax_call("dots"))
+
+
+def _stem_inputs(b, h, w, seed):
+    """A raw 0..255 canvas and the folded weights of a random stem with a
+    nonzero BN shift, so that the bias row carries a value."""
+    rng = np.random.default_rng(seed)
+    canvas = np.zeros((b, 3, h + 2, w + 2), np.float32)
+    canvas[:, :, 1:-1, 1:-1] = rng.integers(0, 256, (b, 3, h, w))
+    k = torch.from_numpy((rng.standard_normal((16, 3, 3, 3)) * 0.3).astype(np.float32))
+    gamma, beta, mean = (torch.from_numpy((rng.standard_normal(16) * s + m).astype(np.float32))
+                         for s, m in ((0.2, 1.0), (0.2, 0.0), (0.1, 0.0)))
+    var = torch.from_numpy((rng.random(16) + 0.5).astype(np.float32))
+    return (torch.from_numpy(canvas).to(torch.bfloat16),
+            *fold_stem_params(k, gamma, beta, mean, var))
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 32), (3, 30, 18), (2, 64, 130), (1, 66, 66)])
+def test_conv_gemm_probe_matches_conv_plain(shape):
+    """In the v4 class (atol 0.03, rtol 0.02, >= 99.9% bit-equal): only the
+    float32 summation order differs, the bias once added in the GEMM."""
+    x, w, bias = _stem_inputs(*shape, seed=sum(shape))
+    got = csp.conv_gemm_probe(x, w, bias)
+    assert got.shape == (shape[0], shape[1] // 2, shape[2] // 2, 16)
+    assert got.dtype == torch.bfloat16
+    got, ref = got.float().numpy(), csp.conv_plain(x, w, bias).float().numpy()
+    np.testing.assert_allclose(got, ref, atol=0.03, rtol=0.02)
+    assert (got == ref).mean() >= 0.999
 
 
 def _bf16_round(x: np.ndarray) -> np.ndarray:
@@ -155,3 +195,63 @@ def test_probe_entry_point_on_cpu(capsys):
     assert lines[-1].startswith("split: (conv + pool) / full = ")
     with pytest.raises(ValueError):
         csp.stem_probe("dots", *probe.make_inputs(1, 32, "cpu"))
+
+
+class _Loaded(Exception):
+    """Raised by a stand-in for the library load: the call got past the
+    sm_90 gate."""
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, to reach the gate."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("variant", ["conv", "pool", "dblbuf", "pipe"])
+@pytest.mark.parametrize("cap", [(9, 0), (8, 0)])
+def test_stem_probe_needs_sm90(monkeypatch, port_inputs, variant, cap):
+    """On a CUDA device of another capability than (9, 0) a probe kernel
+    request raises, naming sm_90, before the library loads; on sm_90 it goes
+    on to the library."""
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda device=None: cap)
+    monkeypatch.setattr(csp, "_READY", set())
+    loads = []
+
+    def load():
+        loads.append(1)
+        raise _Loaded
+
+    monkeypatch.setattr(csp._build, "load_library", load)
+    on_card = [t.as_subclass(_OnCard) for t in port_inputs]
+    before = dict(csp.LAUNCHES)
+    if cap == (9, 0):
+        with pytest.raises(_Loaded):
+            csp.stem_probe(variant, *on_card)
+        assert loads == [1] and csp._READY == {0}
+    else:
+        with pytest.raises(ValueError, match="sm_90"):
+            csp.stem_probe(variant, *on_card)
+        assert loads == [] and csp._READY == set()
+    assert csp.LAUNCHES == before
+
+
+@pytest.mark.parametrize("cap", [(9, 0), (8, 0)])
+def test_probe_entry_point_needs_sm90(monkeypatch, cap):
+    """`run` on a CUDA device that is not sm_90 raises, naming sm_90, before
+    it makes any input; on sm_90 it goes on to make them."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda device=None: cap)
+
+    def make_inputs(*args, **kwargs):
+        raise _Loaded
+
+    monkeypatch.setattr(probe, "make_inputs", make_inputs)
+    if cap == (9, 0):
+        with pytest.raises(_Loaded):
+            probe.run(1, 32, "cuda", iters=1)
+    else:
+        with pytest.raises(ValueError, match="sm_90"):
+            probe.run(1, 32, "cuda", iters=1)

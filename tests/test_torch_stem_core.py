@@ -8,11 +8,15 @@ one float32 matmul, rounding before the pools.  `stem_eval_gemm` and
 `stem_train_gemm` are held against the plain versions and against the JAX
 package (`pallas_stem_e` and `fused_train_stem` in Pallas interpret mode), in
 the v4 class (tests/test_pallas_stem.py) and at the float32 tolerances of
-tests/test_train_stem.py: only the float32 summation order differs.
+tests/test_train_stem.py: only the float32 summation order differs.  The
+stem split probe's 'conv' kernel runs A's GEMM and keeps, unpooled, the
+value at each window's centre: relu(`conv_gemm_probe`) <= `stem_eval_gemm`
+holds exactly.
 
 (b) The persistent tile schedule the wrappers hand the kernels: every pooled
 pixel is written by exactly one tile, and every conv pixel is counted
-exactly once in kernel C's sums.
+exactly once in kernel C's sums; the probe's 'conv' finish writes each
+pooled pixel once, with its centre conv value and never the -inf padding.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import jax.numpy as jnp
 from dcfa_yolo_tpu.ops.pallas_stem import fold_stem_params_e, pallas_stem_e
 from dcfa_yolo_tpu.ops.pallas_stem_train import fused_train_stem as jax_fused
 from dcfa_yolo_tpu.ops.resize import deinterleave_cols_cf
-from dcfa_yolo_tpu_torch.ops import cuda_stem, cuda_stem_train, stem_core
+from dcfa_yolo_tpu_torch.ops import cuda_stem, cuda_stem_probe, cuda_stem_train, stem_core
 
 torch.set_num_threads(1)
 
@@ -149,6 +153,20 @@ def test_eval_gemm_bias_row_is_the_bias():
     assert torch.equal(got.float(), want)
 
 
+@pytest.mark.parametrize("shape", SHAPES)
+def test_conv_probe_gemm_under_eval_gemm(shape):
+    """relu(conv) <= full, exactly, in the kernels' arithmetic: conv position
+    (2i, 2j) is the centre of pooled pixel (i, j)'s window, and A pools the
+    same bf16 values (the invariant chip_smoke.py holds on the card)."""
+    canvas, _, w, bias = _eval_inputs(8, shape)
+    x = torch.from_numpy(canvas).to(torch.bfloat16)
+    conv = cuda_stem_probe.conv_gemm_probe(x, w, bias).float()
+    full = cuda_stem.stem_eval_gemm(x, w, bias).float()
+    assert conv.shape == full.shape
+    assert bool((torch.relu(conv) <= full).all())
+    assert conv.abs().max() > 0.5 and (torch.relu(conv) == full).any()
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_train_gemm_matches_plain(shape, dtype):
@@ -266,6 +284,39 @@ def test_schedule_counts_every_conv_pixel_once(b, hw):
             per_cta[cta] = per_cta.get(cta, 0) + len(rows) * len(cols)
         assert (counted == 1).all()
         assert sum(per_cta.values()) == b * h * w
+
+
+@pytest.mark.parametrize("shape", [(3, 30, 18), (2, 64, 130), (1, 66, 66)])
+def test_conv_probe_finish_writes_every_pooled_pixel_once(shape):
+    """The probe 'conv' kernel's finish over the persistent walk.  Each tile
+    holds A's conv tile: conv rows 2·pr0 − 1 + r (r < 2·TH + 1), cols
+    2·pc0 − 1 + c (c < 2·TW + 1), −inf outside the image.  Pooled pixel
+    (pr0 + lr, pc0 + lc) inside the image reads tile position (2·lr + 1,
+    2·lc + 1).  Every pooled pixel is written once, with conv (2i, 2j),
+    never the padding."""
+    b, h, w = shape
+    cr, cc = 2 * stem_core.TH + 1, 2 * stem_core.TW + 1
+    tx, ty, _ = stem_core.tile_grid(b, h, w)
+    conv = np.random.default_rng(h * w).standard_normal((b, h, w)).astype(np.float32)
+    # the conv tiles of the last tile row and col reach past the image
+    padded = np.full((b, h + cr + 1, w + cc + 1), -np.inf, np.float32)
+    padded[:, 1:h + 1, 1:w + 1] = conv
+    for resident in RESIDENT:
+        out = np.full((b, h // 2, w // 2), np.nan, np.float32)
+        written = np.zeros((b, h // 2, w // 2), np.int32)
+        for _, t in _walk(b, h, w, stem_core.num_ctas(b, h, w, resident)):
+            img, pr0, pc0 = stem_core.tile_origin(t, tx, ty)
+            y0, x0 = 2 * pr0 - 1, 2 * pc0 - 1
+            tile = padded[img, y0 + 1:y0 + 1 + cr, x0 + 1:x0 + 1 + cc]
+            assert tile.shape == (cr, cc)
+            for lr in range(stem_core.TH):
+                for lc in range(stem_core.TW):
+                    pr, pc = pr0 + lr, pc0 + lc
+                    if pr < h // 2 and pc < w // 2:
+                        out[img, pr, pc] = tile[2 * lr + 1, 2 * lc + 1]
+                        written[img, pr, pc] += 1
+        assert (written == 1).all()
+        np.testing.assert_array_equal(out, conv[:, ::2, ::2])
 
 
 def test_schedule_tile_order_and_grid():
