@@ -3,8 +3,9 @@
 // train stem).  Both compute conv3x3 s1 (3 -> 16) over 8x16 pooled pixels a
 // tile, keep the 17x33 conv tile in shared memory and pool it 3x3 s2 pad 1;
 // only the pooled maps (and C's per-CTA sums) reach device memory.  The stem
-// split probe's conv and dblbuf variants (stem_probe.cu) run kernel A's walk
-// (eval_walk) with their own finish.
+// split probe's four variants (stem_probe.cu) run on kernel A's staging,
+// conv step and pool: conv, pool and dblbuf on A's walk (eval_walk) with
+// their own conv step or finish, pipe on a split-role walk of its own.
 //
 // What is shared:
 //   * the tile geometry and the persistent tile walk: a fixed grid of CTAs
@@ -398,14 +399,16 @@ struct Pack8<float> {
 
 // ---- pools ---------------------------------------------------------------
 
-// The pool item of this thread: (pooled pixel, half of the channels).  The
-// pool functions skip items outside the image (ragged tiles) by returning
-// from themselves only: the caller's tile loop has barriers.
+// Pool item `item` (0 .. 2*TH*TW - 1) of a tile: (pooled pixel, half of the
+// channels); by default the thread's own, item threadIdx.x.  The pool
+// functions skip items outside the image (ragged tiles) by returning from
+// themselves only: the caller's tile loop has barriers.
 struct PoolItem {
   int lr, lc, half, pr, pc;
-  __device__ __forceinline__ PoolItem(const Tile& t) {
-    const int pix = threadIdx.x >> 1;
-    half = threadIdx.x & 1;
+  __device__ __forceinline__ explicit PoolItem(const Tile& t) : PoolItem(t, threadIdx.x) {}
+  __device__ __forceinline__ PoolItem(const Tile& t, int item) {
+    const int pix = item >> 1;
+    half = item & 1;
     lr = pix / TW;
     lc = pix % TW;
     pr = t.pr0 + lr;
@@ -421,11 +424,12 @@ struct PoolItem {
   }
 };
 
-// A: max over the 3x3 window (positions outside the image hold -inf), ReLU
+// A: max over the 3x3 window (positions outside the image hold -inf), ReLU;
+// for pool item `item` (by default the thread's own)
 template <int SCS>
 __device__ __forceinline__ void pool_max_relu(const bf16* s_conv, bf16* __restrict__ out,
-                                              const Tile& t, int Hp, int Wp) {
-  const PoolItem it(t);
+                                              const Tile& t, int Hp, int Wp, int item) {
+  const PoolItem it(t, item);
   if (it.pr >= Hp || it.pc >= Wp) return;
   Pack8<bf16> m = Pack8<bf16>::fill(0.f);  // the ReLU, folded into the max
 #pragma unroll
@@ -437,6 +441,12 @@ __device__ __forceinline__ void pool_max_relu(const bf16* s_conv, bf16* __restri
       m.max(v);
     }
   m.store(out + it.out_index<bf16>(t.b, Hp, Wp));
+}
+
+template <int SCS>
+__device__ __forceinline__ void pool_max_relu(const bf16* s_conv, bf16* __restrict__ out,
+                                              const Tile& t, int Hp, int Wp) {
+  pool_max_relu<SCS>(s_conv, out, t, Hp, Wp, threadIdx.x);
 }
 
 // C: max and min over the window's positions inside the image (with pad 1,
@@ -535,7 +545,7 @@ __device__ __forceinline__ void sums_write(const A (&sum)[N], const A (&sq)[N],
   }
 }
 
-// ---- kernel A's walk (stem_eval.cu; the probe's conv and dblbuf) -------------
+// ---- kernel A's walk (stem_eval.cu; the probe's variants) -------------------
 
 constexpr int ICB = IC + 1;     // staged canvas cols, from the even column x0 - 1
 constexpr int WORDS = ICB / 2;  // 4-byte copies per staged row
@@ -570,22 +580,48 @@ __device__ __forceinline__ void stage_canvas(const bf16* __restrict__ img, bf16*
   }
 }
 
+// Whether conv position p of the tile whose conv tile starts at conv pixel
+// (y0, x0) = (2*pr0 - 1, 2*pc0 - 1) lies inside the H x W image; outside, a
+// conv step writes -inf, the pool's padding.
+__device__ __forceinline__ bool in_image(int y0, int x0, int p, int H, int W) {
+  const int y = y0 + p / CC, x = x0 + p % CC;
+  return y >= 0 && y < H && x >= 0 && x < W;
+}
+
+// Kernel A's conv step: stage buffer -> conv tile on the tensor cores, the
+// bias in K row 27, each value rounded to bf16 at EVAL_SCS elements a
+// position.  The B fragments are packed when the step is made, once a CTA.
+struct EvalConvMma {
+  MmaOperands ops;
+  int H, W;
+  __device__ __forceinline__ EvalConvMma(const bf16* __restrict__ weight,
+                                         const float* __restrict__ bias, int H_, int W_)
+      : H(H_), W(W_) {
+    mma_operands<EvalLayout>(weight, bias, ops);
+  }
+  __device__ __forceinline__ void operator()(const Tile& t, const bf16* stage,
+                                             bf16* conv) const {
+    const int y0 = 2 * t.pr0 - 1, x0 = 2 * t.pc0 - 1;
+    conv_tile_mma<EvalLayout>(stage, ops,
+                              [&](int p, int ch, float v0, float v1, float v2, float v3) {
+                                const bool in = in_image(y0, x0, p, H, W);
+                                uint32_t* dst = reinterpret_cast<uint32_t*>(conv + p * EVAL_SCS);
+                                dst[ch / 2] = in ? pack2(v0, v1) : BF16_NEG_INF2;
+                                dst[ch / 2 + 4] = in ? pack2(v2, v3) : BF16_NEG_INF2;
+                              });
+  }
+};
+
 // Kernel A's persistent walk over the canvas (B, 3, H+2, W+2) bf16: each
-// tile staged by stage_canvas, convolved on the tensor cores with the bias
-// in K row 27 and rounded to bf16 into a conv tile (positions outside the
-// image hold -inf, the pool's padding), then finish(t, conv tile) in the
+// tile staged by stage_canvas, turned into a conv tile by conv(t, stage
+// buffer, conv tile) (A's is EvalConvMma), then finish(t, conv tile) in the
 // next step.  A's finish is pool_max_relu<EVAL_SCS>.
-template <class Finish>
-__device__ __forceinline__ void eval_walk(const bf16* __restrict__ canvas,
-                                          const bf16* __restrict__ weight,
-                                          const float* __restrict__ bias, int B, int H, int W,
-                                          EvalSmem& sm, Finish&& finish) {
+template <class Conv, class Finish>
+__device__ __forceinline__ void eval_walk(const bf16* __restrict__ canvas, int B, int H, int W,
+                                          EvalSmem& sm, Conv&& conv, Finish&& finish) {
   const int tiles_x = tiles_x_of(W), tiles_y = tiles_y_of(H);
   const int H2 = H + 2, W2 = W + 2;
   const size_t img_elems = (size_t)3 * H2 * W2;
-
-  MmaOperands ops;
-  mma_operands<EvalLayout>(weight, bias, ops);
 
   walk_tiles<2>(
       B, tiles_x, tiles_y,
@@ -593,28 +629,18 @@ __device__ __forceinline__ void eval_walk(const bf16* __restrict__ canvas,
         stage_canvas(canvas + t.b * img_elems, sm.stage[buf], 2 * t.pr0 - 1, 2 * t.pc0 - 1,
                      H2, W2);
       },
-      [&](const Tile& t, int sbuf, int cbuf) {
-        const int y0 = 2 * t.pr0 - 1, x0 = 2 * t.pc0 - 1;
-        bf16* conv = sm.conv[cbuf];
-        conv_tile_mma<EvalLayout>(
-            sm.stage[sbuf], ops, [&](int p, int ch, float v0, float v1, float v2, float v3) {
-              const int y = y0 + p / CC, x = x0 + p % CC;
-              const bool in = y >= 0 && y < H && x >= 0 && x < W;
-              uint32_t* dst = reinterpret_cast<uint32_t*>(conv + p * EVAL_SCS);
-              dst[ch / 2] = in ? pack2(v0, v1) : BF16_NEG_INF2;
-              dst[ch / 2 + 4] = in ? pack2(v2, v3) : BF16_NEG_INF2;
-            });
-      },
+      [&](const Tile& t, int sbuf, int cbuf) { conv(t, sm.stage[sbuf], sm.conv[cbuf]); },
       [&](const Tile& t, int buf) { finish(t, sm.conv[buf]); });
 }
 
 // ---- host side -------------------------------------------------------------
 
 // info: registers, local (stack) bytes a thread, static and dynamic shared
-// memory a CTA, CTAs resident on the device (SMs x CTAs per SM).  Also sets
-// the kernel's dynamic shared memory limit, which a launch above 48 KB needs.
+// memory a CTA, CTAs of `threads` threads resident on the device (SMs x CTAs
+// per SM).  Also sets the kernel's dynamic shared memory limit, which a
+// launch above 48 KB needs.
 template <class K>
-int kernel_info(K kernel, int dyn_smem, int* info) {
+int kernel_info(K kernel, int dyn_smem, int* info, int threads = THREADS) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        dyn_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -624,7 +650,7 @@ int kernel_info(K kernel, int dyn_smem, int* info) {
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(e);
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return static_cast<int>(e);
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
                                                          dyn_smem)) != cudaSuccess)
     return static_cast<int>(e);
   info[0] = a.numRegs;
@@ -641,16 +667,17 @@ inline bool grid_ok(int n_cta, int B, int H, int W) {
   return n_cta >= 1 && n_cta <= B * tiles_x_of(W) * tiles_y_of(H);
 }
 
-// Launch a kernel on eval_walk (A, the probe's conv and dblbuf) on the
-// persistent grid of n_cta CTAs; returns a CUDA error code.
+// Launch a kernel on A's staging and EvalSmem (A, the probe's variants) on
+// the persistent grid of n_cta CTAs of `threads` threads; returns a CUDA
+// error code.
 template <class K>
 int launch_eval(K kernel, const void* canvas, const void* weight, const void* bias, void* out,
-                int B, int H, int W, int n_cta, void* stream) {
+                int B, int H, int W, int n_cta, void* stream, int threads = THREADS) {
   if (!grid_ok(n_cta, B, H, W)) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = static_cast<int>(sizeof(EvalSmem));
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<n_cta, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<n_cta, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(canvas), static_cast<const bf16*>(weight),
       static_cast<const float*>(bias), static_cast<bf16*>(out), B, H, W);
   return static_cast<int>(cudaGetLastError());

@@ -36,8 +36,9 @@
 // they convolve tile k, one barrier a tile; the conv tiles in shared memory
 // at a 48-byte position stride, so that the pool's 16-byte reads of
 // neighbouring windows fall in distinct banks.  62 KB of shared memory a
-// CTA (dynamic).  The walk (staging, conv, smem layout) is eval_walk in
-// stem_core.cuh, which the probe's conv and dblbuf kernels share.
+// CTA (dynamic).  The walk (staging, smem layout) is eval_walk in
+// stem_core.cuh and the conv step EvalConvMma, which the stem split probe's
+// kernels share.
 
 #include "stem_core.cuh"
 
@@ -50,8 +51,8 @@ stem_eval_kernel(const bf16* __restrict__ canvas, const bf16* __restrict__ weigh
                  const float* __restrict__ bias, bf16* __restrict__ out, int B, int H,
                  int W) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  eval_walk(canvas, weight, bias, B, H, W, *reinterpret_cast<EvalSmem*>(smem_raw),
-            [&](const Tile& t, const bf16* conv) {
+  eval_walk(canvas, B, H, W, *reinterpret_cast<EvalSmem*>(smem_raw),
+            EvalConvMma(weight, bias, H, W), [&](const Tile& t, const bf16* conv) {
               pool_max_relu<EVAL_SCS>(conv, out, t, H / 2, W / 2);
             });
 }

@@ -135,7 +135,7 @@ def load_library() -> ctypes.CDLL:
 # the kernels on csrc/stem_core.cuh's persistent walk, whose grids are sized
 # from the card's resident CTAs
 STEM_KERNELS = ("stem_eval", "stem_train_bf16", "stem_train_f32", "stem_probe_conv",
-                "stem_probe_dblbuf")
+                "stem_probe_pool", "stem_probe_dblbuf", "stem_probe_pipe")
 # the stem split probe's entry codes (csrc/stem_probe.cu's stem_probe_bf16
 # and stem_probe_info)
 PROBE_CODES = {"conv": 1, "pool": 2, "dblbuf": 3, "pipe": 4}

@@ -19,16 +19,18 @@ stands for:
   pool warps (warp specialisation, two conv slots).
 
 All take kernel A's inputs (canvas (B, 3, H+2, W+2) bf16, `fold_stem_params`
-weights) and give its output shape (B, H/2, W/2, 16) bf16 NHWC.  'conv' and
-'dblbuf' run on kernel A's core (`csrc/stem_core.cuh`: tensor-core conv,
-persistent double-buffered walk, grid from `ops/stem_core.py::num_ctas`), so
-'dblbuf' is bit-identical to 'full' (A already double-buffers: it is A as a
-launch of its own) and relu('conv') <= 'full' holds exactly.  'pool' and
-'pipe' keep kernel A's first design (CUDA-core f32 conv, one CTA a tile);
-'pipe' agrees with 'full' in the v4 class.  `stem_probe` launches a
-variant's kernel for a CUDA tensor and uses its plain version (`PLAIN`) only
-for a CPU tensor; `LAUNCHES` counts each new kernel's launches ('full'
-counts in `cuda_stem.LAUNCHES`).
+weights) and give its output shape (B, H/2, W/2, 16) bf16 NHWC.  All four
+run on kernel A's core (`csrc/stem_core.cuh`: A's canvas staging, tensor-core
+conv step and pool tree, on a persistent grid from
+`ops/stem_core.py::num_ctas` and the kernel's resident CTAs).  'conv',
+'pool' and 'dblbuf' walk A's double-buffered schedule: 'dblbuf' is A as a
+launch of its own, so bit-identical to 'full'; relu('conv') <= 'full' holds
+exactly; 'pool' is A with the GEMM swapped for the three adds, equal to
+`pool_plain` bit for bit.  'pipe' splits A's steps between conv and pool
+warps and computes every value as A does, so it is bit-identical to 'full'.
+`stem_probe` launches a variant's kernel for a CUDA tensor and uses its
+plain version (`PLAIN`) only for a CPU tensor; `LAUNCHES` counts each new
+kernel's launches ('full' counts in `cuda_stem.LAUNCHES`).
 """
 
 from __future__ import annotations
@@ -42,7 +44,6 @@ from dcfa_yolo_tpu_torch.ops.cuda_stem import STEM_CO, stem_eval_plain
 
 VARIANTS = ("full", "conv", "pool", "dblbuf", "pipe")
 _CODES = _build.PROBE_CODES
-_ON_CORE = ("conv", "dblbuf")  # on kernel A's walk: a persistent grid
 LAUNCHES = {name: 0 for name in _CODES}
 _READY: set = set()  # CUDA device indices that passed require_kernels
 
@@ -101,10 +102,8 @@ def stem_probe(variant: str, canvas: torch.Tensor, weight: torch.Tensor,
     out = torch.empty((b, h // 2, w // 2, STEM_CO), dtype=torch.bfloat16, device=dev)
     if b == 0:
         return out
-    n_cta = 0  # pool and pipe size their own grids
-    if variant in _ON_CORE:
-        resident = _build.stem_kernel_info(f"stem_probe_{variant}", dev)["resident_ctas"]
-        n_cta = stem_core.num_ctas(b, h, w, resident)
+    resident = _build.stem_kernel_info(f"stem_probe_{variant}", dev)["resident_ctas"]
+    n_cta = stem_core.num_ctas(b, h, w, resident)
     rc = lib.stem_probe_bf16(_CODES[variant], canvas.data_ptr(), weight.data_ptr(),
                              bias.data_ptr(), out.data_ptr(), b, h, w, n_cta,
                              torch.cuda.current_stream(dev).cuda_stream)

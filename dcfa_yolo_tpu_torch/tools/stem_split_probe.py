@@ -11,12 +11,14 @@ pool (load + pool tree, the centre tap's three channels plus the bias in
 place of the conv), dblbuf (persistent CTAs, next tile's canvas copied
 during this one) and pipe (conv warps one tile ahead of pool warps).  If
 conv + pool ≈ full, the phases run one after the other and overlapping
-them is the lever; if conv ≈ full, the conv is.  conv and dblbuf run on
-kernel A's core (tensor-core conv, persistent double-buffered walk): conv
-is A with a centre sample in place of the pool tree, dblbuf is A itself,
-since A already double-buffers.  pool and pipe keep A's first design
-(CUDA-core conv, one CTA a tile) until they are rebuilt on the core, so the
-split line mixes a conv on the core with a pool of the first design.
+them is the lever; if conv ≈ full, the conv is.  All four run on kernel
+A's core (its staging, tensor-core conv step and pool tree on a persistent
+grid), so each differs from A in one step: conv is A with a centre sample in
+place of the pool tree, pool is A with three adds in place of the GEMM,
+dblbuf is A itself (A already double-buffers), and pipe is A's steps split
+between conv warps and pool warps.  So pool / full and conv / full split
+A's time: pool ≈ full says the load sets it, pool ≪ conv that the GEMM's
+operand gathers do.
 
 Inputs are made from seed 0 as in the JAX probe: a uint8 image batch in a
 zero-bordered canvas, a N(0, 0.1) kernel and an identity BN.  For each
@@ -84,11 +86,11 @@ def run(batch: int = 128, size: int = 640, device="cuda", iters: int = 20
     bound_by, and bit_identical_to_full for dblbuf and pipe}}.
 
     `bit_identical_to_full` is reported, not required.  On the card it is
-    True for dblbuf (kernel A's own code as a launch of its own, as JAX
-    dblbuf is bit-identical to full) and False for pipe, which keeps kernel
-    A's first CUDA-core fmaf order and agrees with full in the v4 class.  On
-    the CPU every variant is its plain version and it is True.  On a CUDA
-    device that is not sm_90 it raises before it makes any input."""
+    True for both, as JAX dblbuf and pipe are bit-identical to JAX full:
+    dblbuf is kernel A's own code as a launch of its own, and pipe runs A's
+    conv step and pool, only split between warps.  On the CPU every variant
+    is its plain version and it is True.  On a CUDA device that is not
+    sm_90 it raises before it makes any input."""
     from dcfa_yolo_tpu_torch.device import require_kernels, resolve_device
     from dcfa_yolo_tpu_torch.ops.cuda_stem_probe import VARIANTS, stem_probe
     from dcfa_yolo_tpu_torch.utils.profiling import device_ms

@@ -59,11 +59,12 @@ def test_stem_kernel_matches_plain(cuda, shape):
 
 
 @pytest.mark.parametrize("name", ["stem_eval", "stem_train_bf16", "stem_train_f32",
-                                  "stem_probe_conv", "stem_probe_dblbuf"])
+                                  "stem_probe_conv", "stem_probe_pool", "stem_probe_dblbuf",
+                                  "stem_probe_pipe"])
 def test_stem_kernels_fit_two_ctas_an_sm(cuda, name):
-    """The kernels on the stem core (A, C, the probe's conv and dblbuf): at
-    most 128 registers a thread and no stack, so that at least two
-    256-thread CTAs are resident on every SM."""
+    """The kernels on the stem core (A, C, the probe's four variants): at
+    most 128 registers a thread and no stack, so that at least two CTAs
+    (of 256 threads; pipe's of 384) are resident on every SM."""
     from dcfa_yolo_tpu_torch.ops import _build
 
     info = _build.stem_kernel_info(name, cuda)
@@ -266,9 +267,9 @@ def test_probe_kernel_matches_plain(cuda, variant, shape):
     """Each probe kernel against its plain version: conv in the v4 class
     (only the f32 summation order differs) and, since it keeps the window
     centre of the values kernel A pools, relu(conv) <= full exactly; pool
-    exactly (the same f32 adds in the same order); dblbuf bit-identical to
-    kernel A (it is A's code); pipe in the v4 class against its plain version
-    and against kernel A (it sums in A's first CUDA-core fmaf order)."""
+    exactly (the same f32 adds in the same order); dblbuf and pipe in the v4
+    class against their plain version and bit-identical to kernel A (dblbuf
+    is A's code; pipe runs A's conv step and pool, split between warps)."""
     from dcfa_yolo_tpu_torch.ops import cuda_stem_probe as csp
 
     x, w_f, bias = _probe_inputs(cuda, *shape)
@@ -281,15 +282,36 @@ def test_probe_kernel_matches_plain(cuda, variant, shape):
         assert torch.equal(out, ref)
         return
     full = cuda_stem.stem_eval(x, w_f, bias)
-    got = out.float().cpu().numpy()
-    for want in (ref, full) if variant == "pipe" else (ref,):
-        want = want.float().cpu().numpy()
-        np.testing.assert_allclose(got, want, atol=0.03, rtol=0.02)
-        assert (got == want).mean() >= 0.999
+    got, want = out.float().cpu().numpy(), ref.float().cpu().numpy()
+    np.testing.assert_allclose(got, want, atol=0.03, rtol=0.02)
+    assert (got == want).mean() >= 0.999
     if variant == "conv":
         assert bool((torch.relu(out.float()) <= full.float()).all())
-    if variant == "dblbuf":
+    if variant in ("dblbuf", "pipe"):
         assert torch.equal(out, full)
+
+
+@pytest.mark.parametrize("variant", ["pool", "pipe"])
+@pytest.mark.parametrize("n_cta", [1, 7, 263])
+def test_probe_kernel_any_grid(cuda, variant, n_cta):
+    """pool and pipe on grids that divide nothing, through the C entry: up
+    to 800 tiles a CTA at (1, 640, 640), a ragged last round of tiles, and
+    for pipe both conv slots reused many times.  Bits as on the wrapper's
+    grid: pool equal to pool_plain, pipe to kernel A."""
+    from dcfa_yolo_tpu_torch.ops import _build
+    from dcfa_yolo_tpu_torch.ops import cuda_stem_probe as csp
+
+    x, w_f, bias = _probe_inputs(cuda, 1, 640, 640)
+    want = csp.PLAIN["pool"](x, w_f, bias) if variant == "pool" else cuda_stem.stem_eval(
+        x, w_f, bias)
+    out = torch.full_like(want, float("nan"))
+    lib = _build.load_library()
+    rc = lib.stem_probe_bf16(_build.PROBE_CODES[variant], x.data_ptr(), w_f.data_ptr(),
+                             bias.data_ptr(), out.data_ptr(), 1, 640, 640, n_cta,
+                             torch.cuda.current_stream(cuda).cuda_stream)
+    _build.check(rc, f"stem_probe {variant}")
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 def test_deploy_predictor_matches_train_graph(cuda):

@@ -14,13 +14,18 @@ step; 'pool' has no JAX counterpart with a meaning (its `vpu` value is an
 iota construct) and is held against a numpy evaluation of its own
 definition.  `conv_gemm_probe`, 'conv' in the card kernel's GEMM form, is
 held against `conv_plain` in the v4 class and against JAX 'dots' within one
-bf16 step.  The sm_90 gate of `stem_probe` and of the probe's entry point is
-checked with `torch.cuda.get_device_capability` monkeypatched.
+bf16 step.  The card kernel of 'pool' is mirrored in numpy on kernel A's
+staging and conv-tile layout (csrc/stem_core.cuh's EvalLayout and
+EVAL_SCS) and held bitwise against `pool_plain` at ragged shapes.  The
+sm_90 gate of `stem_probe` and of the probe's entry point is checked with
+`torch.cuda.get_device_capability` monkeypatched.
 """
 
 from __future__ import annotations
 
 import functools
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -31,7 +36,7 @@ import jax.numpy as jnp
 import tools.stem_split_probe as jprobe
 from dcfa_yolo_tpu.ops.pallas_stem import fold_stem_params_d
 from dcfa_yolo_tpu.ops.resize import deinterleave_cols_cf
-from dcfa_yolo_tpu_torch.ops import cuda_stem, cuda_stem_probe as csp
+from dcfa_yolo_tpu_torch.ops import cuda_stem, cuda_stem_probe as csp, stem_core
 from dcfa_yolo_tpu_torch.ops.cuda_stem import fold_stem_params
 from dcfa_yolo_tpu_torch.tools import stem_split_probe as probe
 
@@ -158,6 +163,89 @@ def test_pool_plain_matches_its_definition(stem_numbers, port_inputs):
             ref = np.maximum(ref, pad[:, dy:dy + S:2, dx:dx + S:2])
     ref = np.maximum(ref, 0)
     np.testing.assert_array_equal(csp.pool_plain(*port_inputs).float().numpy(), ref)
+
+
+def _eval_layout():
+    """Kernel A's stage and conv-tile layout as csrc/stem_core.cuh states
+    it: the tile constants, EvalLayout's (CS, RS, PS, SH) and EVAL_SCS."""
+    src = (Path(stem_core.__file__).resolve().parent.parent / "csrc" / "stem_core.cuh").read_text()
+    c = {"TH": stem_core.TH, "TW": stem_core.TW}
+    c["CR"], c["CC"] = 2 * c["TH"] + 1, 2 * c["TW"] + 1
+    c["IR"], c["IC"] = c["CR"] + 2, c["CC"] + 2
+    for name in ("ICB", "WORDS", "EVAL_SCS"):
+        expr = re.search(rf"constexpr int {name} = ([^;]+);", src).group(1)
+        c[name] = eval(expr.replace("/", "//"), {}, dict(c))  # C's int division
+    args = re.search(r"typedef StageLayout<([^>]+)> EvalLayout;", src).group(1)
+    c["CS"], c["RS"], c["PS"], c["SH"] = (eval(a, {}, dict(c)) for a in args.split(","))
+    return c
+
+
+def _pool_kernel_mirror(canvas, bias, n_cta):
+    """csrc/stem_probe.cu's 'pool' kernel in numpy, tile by tile over the
+    persistent walk: stage_canvas (rows from the even column x0 − 1, pairs
+    outside the canvas zero), the centre-tap step in EvalLayout offsets
+    (base(p) + tap(ci·9 + 4), so the +1 staging shift), bf16(((c0 + c1) +
+    c2) + bias) in float32 or −inf outside the image at EVAL_SCS elements a
+    position, then A's pool_max_relu item by item."""
+    L = _eval_layout()
+    b, _, h2, w2 = canvas.shape
+    h, w = h2 - 2, w2 - 2
+    hp, wp = h // 2, w // 2
+    tx, ty, n_tiles = stem_core.tile_grid(b, h, w)
+    tap = [(k // 9) * L["CS"] + ((k % 9) // 3) * L["RS"] + (k % 3) * L["PS"] for k in range(27)]
+    p = np.arange(L["CR"] * L["CC"])
+    r, c = p // L["CC"], p % L["CC"]
+    base = r * L["RS"] + c * L["PS"] + L["SH"]
+    out = np.full((b, hp, wp, 16), np.nan, np.float32)
+    for cta in range(n_cta):
+        for t in stem_core.cta_tiles(cta, n_cta, n_tiles):
+            img, pr0, pc0 = stem_core.tile_origin(t, tx, ty)
+            y0, x0 = 2 * pr0 - 1, 2 * pc0 - 1
+            stage = np.zeros(3 * L["IR"] * L["ICB"], np.float32)
+            for row in range(3 * L["IR"]):
+                ci, gy = row // L["IR"], y0 + row % L["IR"]
+                for word in range(L["WORDS"]):
+                    gx = x0 - 1 + 2 * word
+                    if 0 <= gy < h2 and 0 <= gx < w2:
+                        stage[row * L["ICB"] + 2 * word:][:2] = canvas[img, ci, gy, gx:gx + 2]
+            v = (stage[base + tap[4]] + stage[base + tap[13]]) + stage[base + tap[22]]
+            conv = _bf16_round(v[:, None] + bias[None, :])
+            y, x = y0 + r, x0 + c
+            conv[~((y >= 0) & (y < h) & (x >= 0) & (x < w))] = -np.inf
+            tile = np.zeros((len(p), L["EVAL_SCS"]), np.float32)
+            tile[:, :16] = conv
+            flat = tile.reshape(-1)
+            for item in range(2 * stem_core.TH * stem_core.TW):
+                lr, lc = divmod(item >> 1, stem_core.TW)
+                half, pr, pc = item & 1, pr0 + lr, pc0 + lc
+                if pr >= hp or pc >= wp:
+                    continue
+                m = np.zeros(8, np.float32)  # the ReLU, folded into the max
+                for dy in range(3):
+                    for dx in range(3):
+                        at = ((2 * lr + dy) * L["CC"] + 2 * lc + dx) * L["EVAL_SCS"] + 8 * half
+                        m = np.maximum(m, flat[at:at + 8])
+                out[img, pr, pc, 8 * half:8 * half + 8] = m
+    return out
+
+
+@pytest.mark.parametrize("shape", [(3, 30, 18), (2, 64, 130), (1, 66, 66)])
+def test_pool_kernel_mirror_matches_pool_plain(shape):
+    """The 'pool' kernel's arithmetic and layout, mirrored in numpy over the
+    persistent walk (a grid of 7, which divides nothing), reproduce
+    `pool_plain` bitwise at shapes whose tiles do not divide the image.  The
+    canvas border holds noise, which `pool_plain` never reads: so the conv
+    positions outside the image must hold the padding, not a sum."""
+    x, w, bias = _stem_inputs(*shape, seed=sum(shape) + 1)
+    canvas = x.float().numpy()
+    border = np.ones(canvas.shape[2:], bool)
+    border[1:-1, 1:-1] = False
+    canvas[:, :, border] = np.random.default_rng(1).integers(
+        0, 256, canvas[:, :, border].shape)
+    x = torch.from_numpy(canvas).to(torch.bfloat16)
+    got = _pool_kernel_mirror(canvas, bias.numpy(), stem_core.num_ctas(*shape, 7))
+    np.testing.assert_array_equal(got, csp.pool_plain(x, w, bias).float().numpy())
+    assert got.max() > 100  # a live stand-in: three channels of 0..255 pixels
 
 
 @pytest.mark.parametrize("variant", csp.VARIANTS)

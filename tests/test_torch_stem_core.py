@@ -16,11 +16,15 @@ holds exactly.
 (b) The persistent tile schedule the wrappers hand the kernels: every pooled
 pixel is written by exactly one tile, and every conv pixel is counted
 exactly once in kernel C's sums; the probe's 'conv' finish writes each
-pooled pixel once, with its centre conv value and never the -inf padding.
+pooled pixel once, with its centre conv value and never the -inf padding;
+the probe's 'pipe' kernel, whose conv and pool warps walk the CTA's tiles
+as two roles ordered by named barriers, neither deadlocks nor overwrites a
+conv slot the pool role still reads, and pools every tile once.
 """
 
 from __future__ import annotations
 
+import random
 import re
 from pathlib import Path
 
@@ -317,6 +321,148 @@ def test_conv_probe_finish_writes_every_pooled_pixel_once(shape):
                         written[img, pr, pc] += 1
         assert (written == 1).all()
         np.testing.assert_array_equal(out, conv[:, ::2, ::2])
+
+
+class _TileIndex:
+    """csrc/stem_core.cuh::TileIndex: tile t as (image, tile row, tile col),
+    advanced by a step of tiles with one carry each, no division."""
+
+    def __init__(self, t, tx, ty):
+        self.b, rem = divmod(t, tx * ty)
+        self.ty, self.tx = divmod(rem, tx)
+
+    def advance(self, step, tx, ty):
+        self.tx += step.tx
+        self.ty += step.ty + (self.tx >= tx)
+        if self.tx >= tx:
+            self.tx -= tx
+        self.b += step.b + (self.ty >= ty)
+        if self.ty >= ty:
+            self.ty -= ty
+
+    def copy(self):
+        c = _TileIndex.__new__(_TileIndex)
+        c.b, c.ty, c.tx = self.b, self.ty, self.tx
+        return c
+
+    def tile(self):
+        return self.b, self.ty * stem_core.TH, self.tx * stem_core.TW
+
+
+BAR_FULL, BAR_EMPTY = 2, 4  # + slot, as in csrc/stem_probe.cu
+
+
+def _pipe_roles(cta, n_cta, b, h, w):
+    """csrc/stem_probe.cu::pipe_walk for CTA `cta`: its tile count n and its
+    two roles as generators of (op, ...) events, step for step as the
+    kernel's loops.  The conv role's own barrier (BAR_CONV, conv threads
+    only) orders its steps in program order, so it is not an event."""
+    tx, ty, n_tiles = stem_core.tile_grid(b, h, w)
+    n = (n_tiles - 1 - cta) // n_cta + 1
+    step = _TileIndex(n_cta, tx, ty)
+
+    def conv():
+        cur = _TileIndex(cta, tx, ty)
+        yield "stage", 0, cur.tile()
+        for k in range(n):
+            slot = k & 1
+            nxt = cur.copy()
+            nxt.advance(step, tx, ty)
+            if k + 1 < n:
+                yield "stage", slot ^ 1, nxt.tile()
+            if k >= 2:
+                yield "sync", BAR_EMPTY + slot
+            yield "write", slot, cur.tile()
+            yield "arrive", BAR_FULL + slot
+            cur = nxt
+
+    def pool():
+        cur = _TileIndex(cta, tx, ty)
+        for k in range(n):
+            slot = k & 1
+            yield "sync", BAR_FULL + slot
+            yield "read", slot, cur.tile()
+            if k + 2 < n:
+                yield "arrive", BAR_EMPTY + slot
+            cur.advance(step, tx, ty)
+
+    return n, {"conv": conv(), "pool": pool()}
+
+
+def _run_pipe_cta(roles, rnd):
+    """Interleave the two roles at random, as the warps may run, and hold
+    each event to the kernel's hazards.  Named barrier `bar` completes a
+    phase when both roles have reached it (one arrives, the other syncs); a
+    sync waits for that, and a role that reached a barrier again before its
+    last phase there completed would land in that phase (a lost sync).
+    Returns the tiles the pool role pooled, in order, and the per-barrier
+    counts of each role."""
+    other = {"conv": "pool", "pool": "conv"}
+    seen = {r: {} for r in roles}          # bar -> times reached
+    stage, slots, pooled = {}, {0: None, 1: None}, []
+    pending = {r: next(g, None) for r, g in roles.items()}
+
+    def blocked(r):
+        op = pending[r]
+        return (op is not None and op[0] == "sync"
+                and seen[other[r]].get(op[1], 0) < seen[r].get(op[1], 0) + 1)
+
+    while any(op is not None for op in pending.values()):
+        ready = [r for r in roles if pending[r] is not None and not blocked(r)]
+        assert ready, f"deadlock at {pending}"
+        r = ready[0] if len(ready) == 1 else ready[rnd.random() < 0.5]
+        op = pending[r]
+        if op[0] in ("sync", "arrive"):
+            mine, theirs = seen[r].get(op[1], 0), seen[other[r]].get(op[1], 0)
+            assert mine <= theirs, f"{r} reached barrier {op[1]} twice in one phase"
+            seen[r][op[1]] = mine + 1
+            if r == "pool" and op[0] == "arrive":  # BAR_EMPTY + slot: released
+                s = op[1] - BAR_EMPTY
+                assert slots[s][0] == "read"
+                slots[s] = ("free",)
+        elif op[0] == "stage":
+            stage[op[1]] = op[2]
+        elif op[0] == "write":
+            _, s, tile = op
+            assert stage[s] == tile, "conv step read another tile's input"
+            assert slots[s] is None or slots[s][0] == "free", (
+                f"slot {s} refilled with {tile} before the pool role released it")
+            slots[s] = ("full", tile)
+        else:  # read
+            _, s, tile = op
+            assert slots[s] == ("full", tile), f"pooled {tile} from slot {s} holding {slots[s]}"
+            slots[s] = ("read", tile)
+            pooled.append(tile)
+        pending[r] = next(roles[r], None)
+    return pooled, seen
+
+
+@pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("hw", SCHED_HW)
+def test_pipe_walk_model(b, hw):
+    """The probe 'pipe' kernel's split-role walk on the persistent grid:
+    each role takes the CTA's tiles in cta_tiles order; slot s is refilled
+    with tile k+2 only after the pool role released tile k; no deadlock,
+    whatever the interleaving, at any tile count, ragged or not; every
+    arrive has its sync; every pooled pixel is written once."""
+    h, w = hw
+    tx, ty, n_tiles = stem_core.tile_grid(b, h, w)
+    rnd = random.Random(b * h + w)
+    for resident in RESIDENT:
+        n_cta = stem_core.num_ctas(b, h, w, resident)
+        written = np.zeros((b, h // 2, w // 2), np.int32)
+        for cta in range(n_cta):
+            n, roles = _pipe_roles(cta, n_cta, b, h, w)
+            want = [stem_core.tile_origin(t, tx, ty)
+                    for t in stem_core.cta_tiles(cta, n_cta, n_tiles)]
+            assert n == len(want) >= 1
+            pooled, seen = _run_pipe_cta(roles, rnd)
+            assert pooled == want
+            assert seen["conv"] == seen["pool"]  # every arrive has its sync
+            for img, pr0, pc0 in pooled:
+                written[img, pr0:min(pr0 + stem_core.TH, h // 2),
+                        pc0:min(pc0 + stem_core.TW, w // 2)] += 1
+        assert (written == 1).all()
 
 
 def test_schedule_tile_order_and_grid():
