@@ -7,9 +7,13 @@ then drives the paths of the port at phi='n' 640²: serving through
 `Trainer.train_step` in bf16 (kernel C), the training CLI
 (`python -m dcfa_yolo_tpu_torch.train`, in-process) in float32 (kernel C's
 float32 instantiation, and kernel B in its mAP epoch), the stem split probe
-(kernel A and its four variants, all on A's core), the deploy serving graph and the bench; it
-checks that each path went through its kernels and agrees with its
-all-plain (or train-graph) version.
+(kernel A and its four variants, all on A's core), the deploy serving
+graph, the captured serving pipeline (`detect_batch_graph`, kernels A and
+B inside one CUDA graph a key, held bit-equal to the eager pipeline), the
+trained-weights fixture served end to end, the serving CLIs
+(`python -m dcfa_yolo_tpu_torch.predict` / `.get_map`, in-process) and the
+bench; it checks that each path went through its kernels and agrees with
+its all-plain (or train-graph, or eager) version.
 
     python3 chip_smoke.py
 
@@ -26,6 +30,7 @@ import importlib.util
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -319,9 +324,10 @@ def phase_nms(dev):
 
 
 def phase_serve(dev):
-    """The main path: YOLOPredictor at phi='n', 640², bf16, conf 0.001 —
-    three single-pair requests, then one b8 batch, with the launch counts
-    read around exactly that run."""
+    """The serving path: YOLOPredictor at phi='n', 640², bf16, conf 0.001 —
+    three single-pair requests, then one b8 batch, through the predictor's
+    CUDA graphs (captured before), with the launch counts read around
+    exactly that run."""
     from dcfa_yolo_tpu_torch.infer.pipeline import predict
     from dcfa_yolo_tpu_torch.infer.predictor import YOLOPredictor
     from dcfa_yolo_tpu_torch.ops import cuda_nms, cuda_stem
@@ -332,6 +338,10 @@ def phase_serve(dev):
     pred = YOLOPredictor(["object"], **kw)
     singles = [serve_inputs(1, SEED + 10 + i) for i in range(3)]
     rgb8, nir8 = serve_inputs(8, SEED + 20)
+    # the predictor serves through one CUDA graph a key: capture the b1 and
+    # b8 graphs first, so that the counted run below is replays only
+    pred.detect(singles[0][0][0], singles[0][1][0])
+    pred.detect_batch(rgb8, nir8)
 
     cuda_stem.LAUNCHES = 0
     cuda_nms.LAUNCHES = 0
@@ -853,8 +863,8 @@ def phase_probe(dev):
 
 def phase_deploy(dev):
     """The deploy serving graph: YOLOPredictor(deploy, fold_shuffle,
-    cast_weights) at b8 640² bf16, with the launch counts read around its b8
-    batch; against the train-graph predictor from the same init_model
+    cast_weights) at b8 640² bf16, with the launch counts read around one
+    replay of its b8 batch's CUDA graph; against the train-graph predictor from the same init_model
     weights at the serving limits (per anchor: scores 0.005, boxes 0.5 px,
     classes equal; NMS kernel == plain on the same predictions)."""
     from dcfa_yolo_tpu_torch.infer.pipeline import predict
@@ -867,6 +877,7 @@ def phase_deploy(dev):
     dep = YOLOPredictor(["object"], deploy=True, fold_shuffle=True, cast_weights=True, **kw)
     base = YOLOPredictor(["object"], **kw)
     rgb8, nir8 = serve_inputs(8, SEED + 50)
+    dep.detect_batch(rgb8, nir8)  # captures the b8 graph; the count below is one replay
     cuda_stem.LAUNCHES = cuda_nms.LAUNCHES = 0
     dets = dep.detect_batch(rgb8, nir8)
     torch.cuda.synchronize()
@@ -907,6 +918,318 @@ def phase_deploy(dev):
     print(f"[deploy] b8 pairs/s (host clock, 10 calls): deploy graph {rate(dep):.1f}, "
           f"train graph {rate(base):.1f}")
     return launches
+
+
+NMS_FIELDS = ("boxes", "scores", "classes", "valid", "n_candidates")
+
+
+def equal_results(a, b):
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in NMS_FIELDS)
+
+
+def host_ms(fn, calls=20):
+    """Host-clock ms a call of `fn()`, each call ending in a synchronise,
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e3
+
+
+def phase_graph(dev):
+    """The captured pipeline (`detect_batch_graph`, one CUDA graph a key)
+    against the eager `detect_batch` on 480×640 seeded pairs at 640² bf16,
+    conf 0.001, IoU 0.5, kernels A and B: for the train graph and for the
+    deploy + folded + cast graph, at b1 and b8, `pre_nms_topk` 1024 and
+    8400, `letterbox` True and False.  Each replay equals the eager call
+    (`torch.equal` on every output field), a second input through the same
+    graph equals its eager result while the first result, still held, stays
+    unchanged; each key captures once; every replay counts 2 stem and 1
+    NMS launches.  Then eager and replay ms a call at b1 and b8."""
+    from dcfa_yolo_tpu_torch.infer.pipeline import (detect_batch, detect_batch_graph,
+                                                    graph_count, release_graphs)
+    from dcfa_yolo_tpu_torch.infer.predictor import YOLOPredictor
+    from dcfa_yolo_tpu_torch.ops import cuda_nms, cuda_stem
+
+    kw = dict(input_shape=(640, 640), phi="n", confidence=0.001, nms_iou=0.5,
+              compute_dtype="bfloat16", seed=SEED)
+    models = {"train": YOLOPredictor(["object"], **kw).model,
+              "deploy": YOLOPredictor(["object"], deploy=True, fold_shuffle=True,
+                                      cast_weights=True, **kw).model}
+    torch.cuda.reset_peak_memory_stats()
+    keys = 0
+    for name, model in models.items():
+        for b in (1, 8):
+            inputs = [serve_inputs(b, SEED + 70 + 10 * b + i) for i in range(2)]
+            hw = np.tile([480.0, 640.0], (b, 1)).astype(np.float32)
+            for topk in (1024, 8400):
+                for letterbox in (True, False):
+                    nkw = dict(conf_thres=0.001, iou_thres=0.5, letterbox=letterbox,
+                               max_det=300, pre_nms_topk=topk, nms="kernel",
+                               stem="kernel")
+                    what = f"{name} b{b} topk {topk} letterbox {letterbox}"
+                    eager = [detect_batch(model, r, n, hw, **nkw) for r, n in inputs]
+                    n0 = graph_count(model)
+                    first = detect_batch_graph(model, *inputs[0], hw, **nkw)
+                    keys += 1
+                    check(graph_count(model) == n0 + 1, f"{what}: no capture")
+                    cuda_stem.LAUNCHES = cuda_nms.LAUNCHES = 0
+                    again = detect_batch_graph(model, *inputs[0], hw, **nkw)
+                    second = detect_batch_graph(model, *inputs[1], hw, **nkw)
+                    torch.cuda.synchronize()
+                    launches = (cuda_stem.LAUNCHES, cuda_nms.LAUNCHES)
+                    check(graph_count(model) == n0 + 1,
+                          f"{what}: the key captured more than once")
+                    check(launches == (4, 2), f"{what}: two replays counted "
+                          f"{launches} stem and NMS launches, expected (4, 2)")
+                    for got, want, which in ((first, eager[0], "first replay"),
+                                             (again, eager[0], "replay"),
+                                             (second, eager[1], "second input"),
+                                             (first, eager[0], "held result")):
+                        bad = [f for f in NMS_FIELDS
+                               if not torch.equal(getattr(got, f), getattr(want, f))]
+                        check(not bad, f"{what}: {which} differs from the eager "
+                              f"call in {bad}")
+                    check(bool(eager[0].valid.any()), f"{what}: no detections")
+    print(f"[graph] {keys} keys over the train and deploy graphs (b1, b8; "
+          f"pre_nms_topk 1024, 8400; letterbox True, False): every replay "
+          f"torch.equal to the eager call on {NMS_FIELDS}, a second input equal to "
+          f"its eager result, the held first result unchanged, one capture a key, "
+          f"2 stem + 1 NMS launches counted a replay")
+    print(f"[graph] peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} "
+          f"MiB with {sum(graph_count(m) for m in models.values())} graphs held | {CARD}")
+    times = {}
+    for name, model in models.items():
+        for b in (1, 8):
+            r, n = serve_inputs(b, SEED + 90 + b)
+            hw = np.tile([480.0, 640.0], (b, 1)).astype(np.float32)
+            nkw = dict(conf_thres=0.001, iou_thres=0.5, max_det=300, pre_nms_topk=1024)
+            times[name, b] = (host_ms(lambda: detect_batch(model, r, n, hw, **nkw)),
+                              host_ms(lambda: detect_batch_graph(model, r, n, hw, **nkw)))
+            eager_ms, replay_ms = times[name, b]
+            print(f"[graph] {name} graph b{b}: eager {eager_ms:.3f} ms/call, replay "
+                  f"{replay_ms:.3f} ms/call ({eager_ms / replay_ms:.2f}x; host clock, "
+                  f"20 calls, each ending in a synchronise, uint8 480x640 host input "
+                  f"copied in) | {CARD}")
+    for model in models.values():
+        release_graphs(model)
+    torch.cuda.empty_cache()
+    return times
+
+
+def synth_pairs(n):
+    """`n` synthetic 480×360 pairs (the port's `tools/make_synth_dataset.py`)
+    as uint8 arrays, and their directory's dataset (kept for [cli])."""
+    import tempfile
+
+    from PIL import Image
+
+    from dcfa_yolo_tpu_torch.tools.make_synth_dataset import make_dataset
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    make_dataset(tmp, n, (480, 360))
+    voc = os.path.join(tmp, "VOCdevkit", "VOC2007")
+    ids = sorted(f[:-4] for f in os.listdir(os.path.join(voc, "Annotations")))
+    pairs = [tuple(np.asarray(Image.open(os.path.join(voc, sub, i + ".png")))
+                   for sub in ("JPEGImages_rgb", "JPEGImages_nir")) for i in ids]
+    return tmp, pairs
+
+
+def trained_variables():
+    from dcfa_yolo_tpu_torch.models.convert import load_flat_npz
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    return load_flat_npz(os.path.join(here, "tests", "fixtures", "ab_weights_f16.npz"))
+
+
+class plain_stem_kernel:
+    """Within this block the serving pipeline's kernel stem runs kernel A's
+    plain version (`stem_eval_plain`) in place of the kernel."""
+
+    def __enter__(self):
+        from dcfa_yolo_tpu_torch.infer import pipeline
+        from dcfa_yolo_tpu_torch.ops import cuda_stem
+
+        self.kernel = pipeline.stem_eval
+        pipeline.stem_eval = cuda_stem.stem_eval_plain
+
+    def __exit__(self, *exc):
+        from dcfa_yolo_tpu_torch.infer import pipeline
+
+        pipeline.stem_eval = self.kernel
+
+
+def phase_trained(dev, pairs):
+    """Trained weights (`tests/fixtures/ab_weights_f16.npz`, loaded through
+    `models/convert.py::unflatten`) on 8 synthetic 480×360 pairs at conf
+    0.5, IoU 0.5, image by image: the served graph path against the eager
+    path with every kernel replaced by its plain version.
+      * float32 (kernel B in the graph; kernel A takes bf16 only) against
+        the float32 all-plain path, at the limits
+        tests/test_fold_shuffle.py:127-131 puts on this fixture in float32:
+        the same number of detections (more than 0 in all), classes equal,
+        boxes within 1 px, scores within 1e-3;
+      * bf16 (kernels A and B in the graph) against the bf16 path with
+        `stem_eval_plain` and the plain NMS: the same counts and classes,
+        boxes within 1 px, and scores within the JAX package's bf16
+        criterion for its kernel stem against its XLA stem
+        (tests/test_pallas_stem.py:298-306), 0.005: bf16 logits step by
+        2^-6 near a score of 0.95, which moves the score by 7.4e-4.
+    The bf16 graph is also measured, not held, against the bf16 ConvMaxpool
+    stem and the float32 path."""
+    from dcfa_yolo_tpu_torch.infer.pipeline import detect_batch
+    from dcfa_yolo_tpu_torch.infer.predictor import YOLOPredictor
+    from dcfa_yolo_tpu_torch.ops import cuda_nms, cuda_stem
+
+    nkw = dict(conf_thres=0.5, iou_thres=0.5, max_det=100, pre_nms_topk=2048)
+
+    def dets(res):
+        """NMSResult of one image → (boxes, scores, classes) on the host."""
+        k = int(res.valid[0].sum())
+        return tuple(t[0][:k].cpu().numpy() for t in (res.boxes, res.scores, res.classes))
+
+    def per_image(served, ref):
+        """Counts, classes equal, max |Δbox| px and max |Δscore| over the
+        pairs, slot by slot; two lists of (boxes, scores, classes)."""
+        counts, classes, box, score = [], True, 0.0, 0.0
+        for (bs, ss, cs), (rb, rs, rc) in zip(served, ref):
+            counts.append((len(bs), len(rb)))
+            if len(bs) != len(rb):
+                continue
+            classes &= bool(np.array_equal(cs, rc))
+            if len(bs):
+                box = max(box, float(np.abs(bs - rb).max()))
+                score = max(score, float(np.abs(ss - rs).max()))
+        return counts, classes, box, score
+
+    def eager(model, stem):
+        return [dets(detect_batch(model, r[None], n[None],
+                                  np.array([r.shape[:2]], np.float32),
+                                  nms="plain", stem=stem, **nkw)) for r, n in pairs]
+
+    held = {}
+    for dtype, score_tol in (("float32", 1e-3), ("bfloat16", 0.005)):
+        pred = YOLOPredictor(["tomato_bunch"], input_shape=(640, 640), phi="n",
+                             confidence=0.5, nms_iou=0.5, max_det=100,
+                             pre_nms_topk=2048, compute_dtype=dtype,
+                             variables=trained_variables())
+        cuda_stem.LAUNCHES = cuda_nms.LAUNCHES = 0
+        served = [pred.detect(r, n) for r, n in pairs]
+        torch.cuda.synchronize()
+        launches = (cuda_stem.LAUNCHES, cuda_nms.LAUNCHES)
+        # one key, one capture, whose eager warm-up launches once more
+        calls = len(pairs) + 1
+        want = (2 * calls if dtype == "bfloat16" else 0, calls)
+        check(launches == want, f"trained {dtype}: {len(pairs)} served pairs counted "
+              f"{launches} stem and NMS launches, expected {want}")
+        if dtype == "bfloat16":
+            with plain_stem_kernel():
+                ref = eager(pred.model, "kernel")
+        else:
+            ref = eager(pred.model, "plain")
+        counts, classes, box, score = per_image(served, ref)
+        held[dtype] = served
+        print(f"[trained] {dtype}: served graph (launches {launches}) vs the plain "
+              f"versions' eager path: detections {[c for c, _ in counts]} / "
+              f"{[k for _, k in counts]}, classes equal {classes}, max |Δbox| "
+              f"{box:.4g} px (limit 1), max |Δscore| {score:.4g} (limit {score_tol:g})")
+        check(all(c == k for c, k in counts) and sum(k for _, k in counts) > 0,
+              f"trained {dtype}: detection counts differ or are all 0: {counts}")
+        check(classes and box <= 1.0 and score <= score_tol,
+              f"trained {dtype}: classes equal {classes}, max |Δbox| {box:.4g} px "
+              f"(limit 1), max |Δscore| {score:.4g} (limit {score_tol:g})")
+        if dtype == "bfloat16":
+            counts, classes, box, score = per_image(served, eager(pred.model, "plain"))
+            print(f"[trained] bf16 served graph vs the bf16 ConvMaxpool stem and plain "
+                  f"NMS (reported): counts equal {all(c == k for c, k in counts)}, "
+                  f"classes equal {classes}, max |Δbox| {box:.4g} px, max |Δscore| "
+                  f"{score:.4g} (slot by slot)")
+        pred.release_graphs()
+    counts, classes, box, score = per_image(held["bfloat16"], held["float32"])
+    print(f"[trained] bf16 served graph vs float32 served graph (reported): counts equal "
+          f"{all(c == k for c, k in counts)}, classes equal {classes}, max |Δbox| "
+          f"{box:.4g} px, max |Δscore| {score:.4g} (slot by slot)")
+
+
+def phase_cli(dev, data_dir):
+    """The serving CLIs in-process on the card, on [trained]'s 8 synthetic
+    pairs with the trained weights as a port checkpoint: `predict` in modes
+    predict, fps (--test-interval 20) and dir_predict at --batch-size 1 and
+    3; `get_map` in --map-mode 0 with a binding --pre-nms-topk that must
+    auto-raise, then --map-mode 4 on its files; `get_map --no-auto-raise`,
+    which must fail.  Kernels A and B must launch in each."""
+    import shutil
+
+    from dcfa_yolo_tpu_torch import get_map, predict
+    from dcfa_yolo_tpu_torch.data import voc
+    from dcfa_yolo_tpu_torch.models.convert import from_jax_variables
+    from dcfa_yolo_tpu_torch.ops import cuda_nms, cuda_stem
+    from dcfa_yolo_tpu_torch.utils.checkpoint import save_checkpoint
+
+    sd = from_jax_variables(trained_variables())
+    buffers = ("running_mean", "running_var")
+    ckpt = os.path.join(data_dir, "trained.ckpt")
+    save_checkpoint(ckpt, dict(
+        params={k: v for k, v in sd.items() if not k.endswith(buffers)},
+        batch_stats={k: v for k, v in sd.items() if k.endswith(buffers)},
+        ema={}, opt_state={}, ema_updates=0, epoch=0))
+    devkit = os.path.join(data_dir, "VOCdevkit")
+    voc.generate_imagesets(devkit, trainval_percent=0.0)  # every pair in test
+    src = os.path.join(devkit, "VOC2007")
+    img = os.path.join(data_dir, "img")
+    for sub in ("rgb", "nir"):
+        shutil.copytree(os.path.join(src, f"JPEGImages_{sub}"), os.path.join(img, sub))
+    first = sorted(os.listdir(os.path.join(img, "rgb")))[0]
+    model = ["--model-path", ckpt, "--classes-path",
+             os.path.join(data_dir, "model_data", "voc_classes.txt"),
+             "--input-shape", "640", "640", "--device", str(dev)]
+    pair = ["--rgb", os.path.join(img, "rgb", first), "--nir", os.path.join(img, "nir", first)]
+
+    def counted(fn):
+        cuda_stem.LAUNCHES = cuda_nms.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        n = (cuda_stem.LAUNCHES, cuda_nms.LAUNCHES)
+        check(n[0] > 0 and n[1] > 0, f"cli: no stem or NMS launch: {n}")
+        return out, n, time.perf_counter() - t0
+
+    runs = [("predict", ["--mode", "predict", "--output",
+                         os.path.join(data_dir, "out", "p.png")] + pair),
+            ("fps", ["--mode", "fps", "--test-interval", "20"] + pair)]
+    runs += [(f"dir_predict b{b}", ["--mode", "dir_predict", "--dir-origin-path", img,
+                                    "--dir-save-path", os.path.join(data_dir, f"out_b{b}"),
+                                    "--batch-size", str(b)]) for b in (1, 3)]
+    for what, argv in runs:
+        out, n, sec = counted(lambda: predict.run(argv + model))
+        extra = (f", {out['seconds'] * 1e3:.3f} ms a call" if "seconds" in out
+                 else f", {len(out['names'])} images" if "names" in out else "")
+        print(f"[cli] predict {what}: launches {n}{extra}, {sec:.1f} s")
+    check(len(os.listdir(os.path.join(data_dir, "out_b3"))) == 8,
+          "cli: dir_predict --batch-size 3 did not write 8 images")
+    gm = model + ["--vocdevkit-path", devkit, "--map-out-path",
+                  os.path.join(data_dir, "map_out"), "--confidence", "0.001"]
+    out, n, sec = counted(lambda: get_map.run(["--map-mode", "0", "--pre-nms-topk", "8"] + gm))
+    att = out["attempts"]
+    check(len(att) >= 2 and att[0]["topk_bound"] > 0 and not att[-1]["topk_bound"],
+          f"cli: get_map did not auto-raise a binding --pre-nms-topk 8: {att}")
+    print(f"[cli] get_map --map-mode 0 --pre-nms-topk 8: {len(att)} attempts "
+          f"(pre_nms_topk {[a['pre_nms_topk'] for a in att]}, max candidates "
+          f"{att[0]['max_candidates']}), VOC mAP50 {out['voc_map']:.4f}; launches {n}, "
+          f"{sec:.1f} s")
+    out4 = get_map.run(["--map-mode", "4"] + gm)
+    print(f"[cli] get_map --map-mode 4: AP {out4['coco_ap']:.4f}, AP50 "
+          f"{out4['coco_ap50']:.4f}")
+    code = None
+    try:
+        get_map.run(["--map-mode", "1", "--pre-nms-topk", "8", "--no-auto-raise"] + gm)
+    except SystemExit as e:
+        code = e.code
+    check(code not in (None, 0), f"cli: get_map --no-auto-raise did not fail ({code!r})")
+    print(f"[cli] get_map --no-auto-raise with a binding cap exits non-zero: {code}")
 
 
 def phase_bench():
@@ -958,6 +1281,13 @@ def main() -> int:
         launches.update(phase_train_cli(dev))
         probe_t = phase_probe(dev)
         phase_deploy(dev)
+        phase_graph(dev)
+        data_dir, pairs = synth_pairs(8)
+        try:
+            phase_trained(dev, pairs)
+            phase_cli(dev, data_dir)
+        finally:
+            shutil.rmtree(data_dir, ignore_errors=True)
         phase_bench()
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

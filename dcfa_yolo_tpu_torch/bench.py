@@ -1,6 +1,11 @@
 """Bench of the port: RGB+NIR pairs/s on one card for the full serving
 pipeline (letterbox, two stems, dual-backbone forward, DFL decode,
 class-offset NMS, letterbox unmap), the counterpart of the root `bench.py`.
+As the root bench times the compiled pipeline (`detect_batch_jit`), this
+one times the captured one (`infer/pipeline.py::detect_batch_graph`, one
+CUDA graph a key, inputs copied into its static buffers, outputs copied
+out); the eager pipeline (`detect_batch`, op by op) is timed beside it at
+both batches (`eager_value`, `eager_b1_ms_pair`).
 
     python -m dcfa_yolo_tpu_torch.bench
 
@@ -9,7 +14,7 @@ fused) with the channel shuffles folded into the weights, `init_model`
 weights from seed 0, conf 0.5, IoU 0.3, `pre_nms_topk` 512, `max_det` 300.
 Inputs are seeded uint8 (B, 480, 602, 3) pairs staged on the device once;
 outputs stay on the device.  The stem autotune times the plain and the
-kernel stem (where `stem_candidates` allows it),
+kernel stem, captured, (where `stem_candidates` allows it),
 min(BENCH_ITERS, 10) calls a trial, and keeps the faster; a candidate that
 fails fails the bench.  Batch 1 is timed over BENCH_ITERS calls a trial.
 
@@ -17,8 +22,9 @@ Environment knobs, as in the root bench: BENCH_BATCH (128), BENCH_ITERS
 (30), BENCH_SIZE (640), BENCH_NMS ('kernel' or 'plain'), BENCH_STEM
 ('autotune', 'kernel' or 'plain'), BENCH_FOLD_SHUFFLE (1), BENCH_CAST_W (0),
 BENCH_IN_DTYPE ('u8' or 'f32'), BENCH_B1 (1: also time batch 1), and
-BENCH_DEVICE ('cuda'; 'cpu' runs the plain versions of the kernels on the
-CPU, where no device metric is reported).
+BENCH_DEVICE ('cuda'; 'cpu' runs the eager pipeline with the plain
+versions of the kernels on the CPU, where no device metric is reported and
+there is no captured pipeline).
 
 FLOPs per pair come from `utils/profiling.py::forward_flops` over one
 forward of the same graph with the plain stem, so they count the same work
@@ -59,7 +65,8 @@ def run() -> dict:
     that `main` prints."""
     from dcfa_yolo_tpu_torch.config import ModelConfig
     from dcfa_yolo_tpu_torch.device import resolve_device
-    from dcfa_yolo_tpu_torch.infer.pipeline import detect_batch, resolve_stem
+    from dcfa_yolo_tpu_torch.infer.pipeline import (detect_batch, detect_batch_graph,
+                                                    resolve_stem)
     from dcfa_yolo_tpu_torch.models.reparam import cast_model_conv_kernels
     from dcfa_yolo_tpu_torch.models.yolo import init_model
     from dcfa_yolo_tpu_torch.utils.profiling import (H100_BF16_FLOPS, forward_flops,
@@ -91,11 +98,12 @@ def run() -> dict:
                 for _ in range(2))
     image_hw = torch.tensor([[480.0, 602.0]] * batch, device=dev)
 
-    def make_fn(stem_name, hw):
+    on_card = dev.type == "cuda"
+
+    def make_fn(stem_name, hw, serve=detect_batch_graph if on_card else detect_batch):
         def fn(r, n):
-            return detect_batch(model, r, n, hw, conf_thres=0.5, iou_thres=0.3,
-                                max_det=300, pre_nms_topk=512, nms=nms,
-                                stem=stem_name)
+            return serve(model, r, n, hw, conf_thres=0.5, iou_thres=0.3,
+                         max_det=300, pre_nms_topk=512, nms=nms, stem=stem_name)
         return fn
 
     autotune = None
@@ -110,7 +118,6 @@ def run() -> dict:
     dt = timeit_chained(make_fn(stem, image_hw), (rgb, nir), iters=iters,
                         subtract_fixed=True, device=dev)
     pairs_per_sec = batch / dt
-    on_card = dev.type == "cuda"
     tflops = flops_per_pair * pairs_per_sec / 1e12 if on_card else None
     mfu = tflops * 1e12 / H100_BF16_FLOPS if on_card else None
     if mfu is not None and mfu > 1.0:
@@ -121,11 +128,21 @@ def run() -> dict:
 
     # batch-1 latency of the same pipeline, the reference FPS protocol's
     # operating point
-    b1_ms = None
-    if env("BENCH_B1", "1") == "1" and batch != 1:
-        b1_ms = round(timeit_chained(make_fn("auto", image_hw[:1]),
-                                     (rgb[:1], nir[:1]), iters=iters,
-                                     subtract_fixed=True, device=dev) * 1e3, 3)
+    b1 = env("BENCH_B1", "1") == "1" and batch != 1
+
+    def b1_ms_pair(**kw):
+        return round(timeit_chained(make_fn("auto", image_hw[:1], **kw),
+                                    (rgb[:1], nir[:1]), iters=iters,
+                                    subtract_fixed=True, device=dev) * 1e3, 3)
+
+    b1_ms = b1_ms_pair() if b1 else None
+    # the eager pipeline beside the captured one, same stem, same inputs
+    eager_value = eager_b1 = None
+    if on_card:
+        eager_value = round(batch / timeit_chained(
+            make_fn(stem, image_hw, serve=detect_batch), (rgb, nir), iters=iters,
+            subtract_fixed=True, device=dev), 2)
+        eager_b1 = b1_ms_pair(serve=detect_batch) if b1 else None
 
     notes = ("hbm_gbps and hbm_util are null: PyTorch has no counterpart of "
              "XLA's compiled-executable 'bytes accessed', and no byte count is "
@@ -151,9 +168,14 @@ def run() -> dict:
         "stem_backend": stem,
         "stem_autotune": autotune,
         "b1_ms_pair": b1_ms,
+        "pipeline": "cuda_graph" if on_card else "eager",
+        "eager_value": eager_value,
+        "eager_b1_ms_pair": eager_b1,
         "timing": "back-to-back calls in CUDA stream order, steady-state slope "
                   "(the per-burst synchronise subtracted; "
-                  "utils/profiling.timeit_chained subtract_fixed)",
+                  "utils/profiling.timeit_chained subtract_fixed); value and "
+                  "b1_ms_pair time the captured pipeline, eager_value and "
+                  "eager_b1_ms_pair the eager one",
         "notes": notes,
     }
 

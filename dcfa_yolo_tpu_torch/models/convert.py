@@ -6,6 +6,8 @@ The port's submodules are named after the flax scopes
 conv kernels HWIO → OIHW under `weight`, and the BN leaves
 `scale/bias/mean/var` → `weight/bias/running_mean/running_var`.  The tree
 arrives as nested mappings of numpy arrays; no JAX is imported.
+`unflatten` rebuilds that tree from flat `/`-joined keys, the layout of
+the trained-weights fixture `tests/fixtures/ab_weights_f16.npz`.
 """
 
 from __future__ import annotations
@@ -26,6 +28,27 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()
             yield from _flatten(v, prefix + (k,))
         else:
             yield prefix + (k,), np.asarray(v, np.float32)
+
+
+def unflatten(flat: Mapping[str, np.ndarray]) -> Dict:
+    """Flat `/`-joined flax keys (`params/backbone_rgb/stem/conv/kernel`) →
+    the nested `{"params", "batch_stats"}` tree (the port's copy of
+    `tools/make_ab_fixture.py::unflatten`)."""
+    tree: Dict = {}
+    for key, v in flat.items():
+        *scopes, leaf = key.split("/")
+        node = tree
+        for p in scopes:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def load_flat_npz(path: str) -> Dict:
+    """A `.npz` of flat flax keys (`unflatten`) as a float32 variables tree,
+    ready for `from_jax_variables`."""
+    with np.load(path) as z:
+        return unflatten({k: z[k].astype(np.float32) for k in z.files})
 
 
 def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:

@@ -147,6 +147,18 @@ def unfold_shuffle_state_dict(sd: StateDict) -> StateDict:
     return apply_shuffle_spec(sd, shuffle_fold_spec(sd), inverse=True)
 
 
+def serving_state_dict(sd: StateDict, deploy: bool = False,
+                       fold_shuffle: bool = False) -> StateDict:
+    """A train-graph state_dict for `DCFAYolo(cfg, deploy=deploy,
+    fold_shuffle=fold_shuffle)`: RepGhost fused, then the shuffles folded
+    (JAX `infer/predictor.py:108-140`)."""
+    if deploy:
+        sd = deploy_state_dict(sd)
+    if fold_shuffle:
+        sd = fold_shuffle_state_dict(sd)
+    return sd
+
+
 def cast_conv_kernels(sd: StateDict, dtype: torch.dtype = torch.bfloat16
                       ) -> StateDict:
     """Pre-cast every 4-D conv kernel to the serving compute dtype

@@ -21,6 +21,7 @@ from dcfa_yolo_tpu_torch.models.backbone import Backbone
 from dcfa_yolo_tpu_torch.models.blocks import (CBAM, C2fRepGhost, ConcatBiFPN,
                                                dfl_decode)
 from dcfa_yolo_tpu_torch.ops.boxes import make_anchors_np
+from dcfa_yolo_tpu_torch.ops.consts import device_const
 from dcfa_yolo_tpu_torch.ops.conv import Conv, ConvBnAct
 from dcfa_yolo_tpu_torch.ops.cuda_stem_train import resolve_train_stem
 from dcfa_yolo_tpu_torch.ops.resize import resize_bilinear_align_corners
@@ -165,14 +166,17 @@ class DCFAYolo(nn.Module):
                                 for bx in boxes], dim=1).float()
         cls_logits = torch.cat([c.permute(0, 2, 3, 1).reshape(b, -1, cfg.num_classes)
                                 for c in clses], dim=1).float()
-        anchors_np, strides_np = make_anchors_np(tuple(input_hw), cfg.strides)
-        dev = box_logits.device
+        key = (tuple(input_hw), tuple(cfg.strides))
+        anchors, strides = (
+            device_const(("anchors", i) + key,
+                         lambda i=i: make_anchors_np(*key)[i],
+                         torch.float32, box_logits.device) for i in range(2))
         return YoloOutputs(
             dbox=dfl_decode(box_logits, cfg.reg_max),
             cls=cls_logits,
             feats=feats,
-            anchors=torch.from_numpy(anchors_np).to(dev),
-            strides=torch.from_numpy(strides_np).to(dev),
+            anchors=anchors,
+            strides=strides,
         )
 
 
@@ -224,14 +228,9 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
             {k: torch.from_numpy(_init_value(k, tuple(v.shape), seed))
              for k, v in model.state_dict().items()}, strict=True)
     if deploy or fold_shuffle:
-        from dcfa_yolo_tpu_torch.models.reparam import (deploy_state_dict,
-                                                        fold_shuffle_state_dict)
+        from dcfa_yolo_tpu_torch.models.reparam import serving_state_dict
 
-        sd = model.state_dict()
-        if deploy:
-            sd = deploy_state_dict(sd)
-        if fold_shuffle:
-            sd = fold_shuffle_state_dict(sd)
+        sd = serving_state_dict(model.state_dict(), deploy, fold_shuffle)
         model = DCFAYolo(cfg, deploy=deploy, fold_shuffle=fold_shuffle)
         model.load_state_dict(sd, strict=True)
     model = model.to(dev)

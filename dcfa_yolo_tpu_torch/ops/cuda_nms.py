@@ -55,11 +55,16 @@ def greedy_suppress_plain(boxes: torch.Tensor, alive: torch.Tensor,
     boxes (B, K, 4) float32 xyxy, alive (B, K) bool → keep (B, K) bool."""
     x1, y1, x2, y2 = boxes.float().unbind(-1)
     area = (x2 - x1) * (y2 - y1)
-    thr = torch.tensor(iou_thres, dtype=torch.float32, device=boxes.device)
+    thr = torch.full((), iou_thres, dtype=torch.float32, device=boxes.device)
     alive = alive.clone()
     k = alive.shape[-1]
     pos = torch.arange(k, device=boxes.device)
-    n = int(torch.where(alive, pos + 1, 0).max()) if alive.numel() else 0
+    if boxes.is_cuda and torch.cuda.is_current_stream_capturing():
+        # a CUDA graph cannot read the last alive index back to the host;
+        # the passes past it change nothing
+        n = k
+    else:
+        n = int(torch.where(alive, pos + 1, 0).max()) if alive.numel() else 0
     for i in range(n):
         bx1, by1 = x1[:, i:i + 1], y1[:, i:i + 1]
         bx2, by2 = x2[:, i:i + 1], y2[:, i:i + 1]
@@ -92,7 +97,7 @@ def suppress_mask_plain(boxes: torch.Tensor, alive: torch.Tensor,
     _, w, _ = mask_layout(k)
     x1, y1, x2, y2 = boxes.float().unbind(-1)
     area = (x2 - x1) * (y2 - y1)
-    thr = torch.tensor(iou_thres, dtype=torch.float32, device=boxes.device)
+    thr = torch.full((), iou_thres, dtype=torch.float32, device=boxes.device)
     col = torch.arange(k, device=boxes.device)
     out = torch.empty((b, k, w), dtype=torch.int64, device=boxes.device)
     for r0 in range(0, k, _ROWS_PER_STEP):

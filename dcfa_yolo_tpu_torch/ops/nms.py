@@ -91,7 +91,8 @@ def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
     """
     backend = resolve_nms(backend, boxes.device)
     suppress = greedy_suppress if backend == "kernel" else greedy_suppress_plain
-    conf = torch.tensor(conf_thres, dtype=scores.dtype, device=scores.device)
+    # filled on the device: a host tensor would be a copy a graph cannot capture
+    conf = torch.full((), conf_thres, dtype=scores.dtype, device=scores.device)
     n_cand = (scores >= conf).sum(dim=-1).to(torch.int32)
     classes = classes.to(torch.int32)
     k = min(pre_nms_topk, boxes.shape[1])

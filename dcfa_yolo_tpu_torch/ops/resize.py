@@ -8,8 +8,12 @@
     as separable matrices with the gray canvas folded in: `letterbox_batch`
     (NHWC canvas) and `letterbox_batch_cf` (the zero-bordered channels-first
     canvas the fused stem kernel reads).
+  * `resize_bicubic`, the plain stretch of the `letterbox=False` serving
+    path: PIL's antialiased bicubic, or the half-pixel cubic of torch/cv2.
 
-The matrices are numpy, built once per shape.
+The matrices are built once per shape in numpy and copied to the device
+once per (shape, dtype, device) (`ops/consts.py`), so that no call copies
+anything from the host.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from dcfa_yolo_tpu_torch.ops.consts import device_const
 
 
 @functools.lru_cache(maxsize=64)
@@ -50,6 +56,23 @@ def _cubic_kernel(t: np.ndarray, a: float = -0.5) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
+def _cubic_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) bicubic interpolation matrix, half-pixel convention, no
+    antialiasing on downscale (torch `interpolate(mode='bicubic',
+    align_corners=False)`, cv2.INTER_CUBIC), edge taps clamped."""
+    scale = n_in / n_out
+    pos = (np.arange(n_out, dtype=np.float64) + 0.5) * scale - 0.5
+    base = np.floor(pos).astype(np.int64)
+    frac = pos - base
+    mat = np.zeros((n_out, n_in), dtype=np.float32)
+    for tap in range(-1, 3):
+        idx = np.clip(base + tap, 0, n_in - 1)
+        w = _cubic_kernel(tap - frac)
+        np.add.at(mat, (np.arange(n_out), idx), w.astype(np.float32))
+    return mat
+
+
+@functools.lru_cache(maxsize=64)
 def _pil_cubic_matrix(n_in: int, n_out: int) -> np.ndarray:
     """(n_out, n_in) matrix reproducing PIL `Image.resize(..., BICUBIC)`:
     a support-scaled (antialiased) cubic filter on downscale, with weight
@@ -71,6 +94,7 @@ def _pil_cubic_matrix(n_in: int, n_out: int) -> np.ndarray:
     return mat.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=64)
 def _letterbox_matrices(ih: int, iw: int, nh: int, nw: int, th: int, tw: int,
                         pad_value: float, border: int):
     """Resize matrices extended with zero rows/cols at the letterbox pad
@@ -93,8 +117,22 @@ def _letterbox_matrices(ih: int, iw: int, nh: int, nw: int, th: int, tw: int,
     return ah, aw, g
 
 
-def _const(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.from_numpy(a).to(device=like.device, dtype=like.dtype)
+_MATRICES = {"linear": _linear_matrix, "cubic": _cubic_matrix,
+             "pil_cubic": _pil_cubic_matrix}
+
+
+def _matrix(kind: str, n_in: int, n_out: int, like: torch.Tensor) -> torch.Tensor:
+    """A `_MATRICES[kind]` matrix in like's dtype on like's device."""
+    return device_const((kind, n_in, n_out), lambda: _MATRICES[kind](n_in, n_out),
+                        like.dtype, like.device)
+
+
+def _letterbox_consts(like: torch.Tensor, *args):
+    """`_letterbox_matrices(*args)` (ah, aw, g) in like's dtype on like's
+    device."""
+    return tuple(device_const(("letterbox", i) + args,
+                              lambda i=i: _letterbox_matrices(*args)[i],
+                              like.dtype, like.device) for i in range(3))
 
 
 def resize_bilinear_align_corners(x: torch.Tensor,
@@ -102,9 +140,35 @@ def resize_bilinear_align_corners(x: torch.Tensor,
     """Bilinear align_corners=True resize of an NCHW tensor, as two
     products in x's dtype (rows first, then columns)."""
     h, w = x.shape[2], x.shape[3]
-    ah = _const(_linear_matrix(h, out_hw[0]), x)
-    aw = _const(_linear_matrix(w, out_hw[1]), x)
+    ah = _matrix("linear", h, out_hw[0], x)
+    aw = _matrix("linear", w, out_hw[1], x)
     return torch.matmul(torch.matmul(ah, x), aw.t())
+
+
+def resize_bicubic(x: torch.Tensor, out_hw: Tuple[int, int],
+                   pil_parity: bool = True) -> torch.Tensor:
+    """Bicubic resize of an NHWC float tensor to `out_hw`, in x's dtype.
+
+    pil_parity=True: PIL's antialiased `Image.BICUBIC` (`utils/utils.py:32`),
+    the horizontal pass first, then PIL's uint8 round and clip, then the
+    vertical pass (unrounded).  False: the plain half-pixel cubic
+    (torch/cv2 flavour), rows first, then columns."""
+    h, w = x.shape[1], x.shape[2]
+    if pil_parity:
+        aw = _matrix("pil_cubic", w, out_hw[1], x)
+        ah = _matrix("pil_cubic", h, out_hw[0], x)
+        x = torch.einsum("qw,bhwc->bhqc", aw, x)
+        x = torch.clamp(torch.round(x), 0.0, 255.0)  # PIL stores uint8 between passes
+        return torch.einsum("ph,bhqc->bpqc", ah, x)
+    return _separable_resize(x, _matrix("cubic", h, out_hw[0], x),
+                             _matrix("cubic", w, out_hw[1], x))
+
+
+def _separable_resize(x: torch.Tensor, ah: torch.Tensor,
+                      aw: torch.Tensor) -> torch.Tensor:
+    """Row then column interpolation matrices applied to NHWC x."""
+    x = torch.einsum("ph,bhwc->bpwc", ah, x)
+    return torch.einsum("qw,bpwc->bpqc", aw, x)
 
 
 def _letterbox_size(images: torch.Tensor, target_hw: Tuple[int, int]):
@@ -129,12 +193,12 @@ def letterbox_batch(images: torch.Tensor, target_hw: Tuple[int, int],
             x, (0, 0, pad_left, tw - nw - pad_left, pad_top, th - nh - pad_top),
             value=pad_value)
         return x
-    ah, aw, g = _letterbox_matrices(ih, iw, nh, nw, th, tw, pad_value, border=0)
-    x = torch.einsum("qw,bhwc->bhqc", _const(aw, x), x)
+    ah, aw, g = _letterbox_consts(x, ih, iw, nh, nw, th, tw, pad_value, 0)
+    x = torch.einsum("qw,bhwc->bhqc", aw, x)
     x = torch.clamp(torch.round(x), 0.0, 255.0)  # PIL stores uint8 between passes
-    x = torch.einsum("ph,bhqc->bpqc", _const(ah, x), x)
+    x = torch.einsum("ph,bhqc->bpqc", ah, x)
     x = torch.clamp(torch.round(x), 0.0, 255.0)
-    return x + _const(g, x)[None, :, :, None]
+    return x + g[None, :, :, None]
 
 
 def letterbox_batch_cf(images: torch.Tensor, target_hw: Tuple[int, int],
@@ -152,9 +216,9 @@ def letterbox_batch_cf(images: torch.Tensor, target_hw: Tuple[int, int],
             x_cf, (pad_left, tw - nw - pad_left, pad_top, th - nh - pad_top),
             value=pad_value)
         return torch.nn.functional.pad(x_cf, (1, 1, 1, 1))
-    ah, aw, g = _letterbox_matrices(ih, iw, nh, nw, th, tw, pad_value, border=1)
-    x = torch.einsum("qw,bhwc->bhqc", _const(aw, x), x)
+    ah, aw, g = _letterbox_consts(x, ih, iw, nh, nw, th, tw, pad_value, 1)
+    x = torch.einsum("qw,bhwc->bhqc", aw, x)
     x = torch.clamp(torch.round(x), 0.0, 255.0)
-    x_cf = torch.einsum("ph,bhqc->bcpq", _const(ah, x), x)
+    x_cf = torch.einsum("ph,bhqc->bcpq", ah, x)
     x_cf = torch.clamp(torch.round(x_cf), 0.0, 255.0)
-    return x_cf + _const(g, x_cf)[None, None, :, :]
+    return x_cf + g[None, None, :, :]

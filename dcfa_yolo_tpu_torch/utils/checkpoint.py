@@ -12,6 +12,7 @@ canonical (unfolded) train graph's names and layouts.
 from __future__ import annotations
 
 import os
+import pickle
 import zipfile
 from typing import Any, Dict
 
@@ -48,7 +49,10 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     anything else raises."""
     if not zipfile.is_zipfile(path):
         raise ValueError(_FOREIGN.format(path=path, keys=KEYS))
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    try:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    except (RuntimeError, pickle.UnpicklingError) as e:  # a zip, not torch's (.npz)
+        raise ValueError(_FOREIGN.format(path=path, keys=KEYS)) from e
     if not isinstance(ckpt, dict) or any(k not in ckpt for k in KEYS):
         raise ValueError(_FOREIGN.format(path=path, keys=KEYS))
     return ckpt

@@ -94,7 +94,9 @@ def test_bench_cpu_json_line(monkeypatch, capsys):
     lines = capsys.readouterr().out.splitlines()
     assert len(lines) == 1
     rec = json.loads(lines[0])
-    assert set(rec) == _root_bench_keys() | {"notes"}
+    assert set(rec) == _root_bench_keys() | {"notes", "pipeline", "eager_value",
+                                             "eager_b1_ms_pair"}
+    assert rec["pipeline"] == "eager" and rec["eager_value"] is None
     assert rec["hbm_gbps"] is None and rec["hbm_util"] is None
     assert "bytes accessed" in rec["notes"]
     assert rec["device"] == "cpu" and rec["mfu"] is None and rec["tflops"] is None

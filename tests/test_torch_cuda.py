@@ -333,3 +333,93 @@ def test_deploy_predictor_matches_train_graph(cuda):
     assert torch.equal(cd, cb)
     assert (sd - sb).abs().max().item() <= 0.005
     assert (bd - bb).abs().max().item() * 640 <= 0.5
+
+
+# ---------------------------------------------------------------------------
+# the captured serving pipeline (infer/pipeline.py::detect_batch_graph)
+
+_GRAPH_FIELDS = ("boxes", "scores", "classes", "valid", "n_candidates")
+
+
+@pytest.fixture(scope="module")
+def serving_models():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    from dcfa_yolo_tpu_torch.infer.predictor import YOLOPredictor
+
+    kw = dict(input_shape=(640, 640), compute_dtype="bfloat16", device="cuda")
+    return {"train": YOLOPredictor(["obj"], **kw).model,
+            "deploy": YOLOPredictor(["obj"], deploy=True, fold_shuffle=True,
+                                    cast_weights=True, **kw).model}
+
+
+def _serve_pairs(b, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 256, (b, 480, 640, 3), dtype=np.uint8),
+            rng.integers(0, 256, (b, 480, 640, 3), dtype=np.uint8),
+            np.tile([480.0, 640.0], (b, 1)).astype(np.float32))
+
+
+@pytest.mark.parametrize("graph", ["train", "deploy"])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("topk", [1024, 8400])
+@pytest.mark.parametrize("letterbox", [True, False])
+def test_graph_replay_equals_eager(cuda, serving_models, graph, b, topk, letterbox):
+    """Each replay of the captured pipeline is bit-equal to the eager call
+    on every output field, for two different inputs through one graph; the
+    key captures once; a result held across a later replay is unchanged;
+    every replay counts kernel A twice and kernel B once."""
+    from dcfa_yolo_tpu_torch.infer.pipeline import (detect_batch, detect_batch_graph,
+                                                    graph_count)
+
+    model = serving_models[graph]
+    kw = dict(conf_thres=0.001, iou_thres=0.5, letterbox=letterbox, max_det=300,
+              pre_nms_topk=topk, nms="kernel", stem="kernel")
+    x1, x2 = _serve_pairs(b, 1), _serve_pairs(b, 2)
+    eager1, eager2 = detect_batch(model, *x1, **kw), detect_batch(model, *x2, **kw)
+    n0 = graph_count(model)
+    held = detect_batch_graph(model, *x1, **kw)
+    before = (cuda_stem.LAUNCHES, cuda_nms.LAUNCHES)
+    second = detect_batch_graph(model, *x2, **kw)
+    torch.cuda.synchronize()
+    assert (cuda_stem.LAUNCHES - before[0], cuda_nms.LAUNCHES - before[1]) == (2, 1)
+    assert graph_count(model) == n0 + 1
+    for got, want in ((held, eager1), (second, eager2)):
+        for f in _GRAPH_FIELDS:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert eager1.valid.any()
+
+
+def test_heatmap_graph_equals_eager(cuda, serving_models):
+    from dcfa_yolo_tpu_torch.infer.pipeline import heatmap_batch, heatmap_batch_graph
+
+    model = serving_models["train"]
+    rgb, nir, _ = _serve_pairs(2, 4)
+    eager = heatmap_batch(model, rgb, nir)
+    for _ in range(2):
+        got = heatmap_batch_graph(model, rgb, nir)
+        assert len(got) == 3 and all(torch.equal(a, e) for a, e in zip(got, eager))
+
+
+def test_failed_capture_raises(cuda, serving_models, monkeypatch):
+    """A capture that fails raises and keeps no graph: a host read inside
+    the pipeline cannot be captured, and nothing falls back to the eager
+    result.  The counters keep only the warm-up's launches."""
+    from dcfa_yolo_tpu_torch.infer import pipeline
+
+    model = serving_models["train"]
+    orig = pipeline.correct_boxes_yxyx
+
+    def host_read(boxes, *a, **kw):
+        float(boxes.sum())  # a device-to-host read
+        return orig(boxes, *a, **kw)
+
+    monkeypatch.setattr(pipeline, "correct_boxes_yxyx", host_read)
+    rgb, nir, hw = _serve_pairs(1, 5)
+    kw = dict(conf_thres=0.25, iou_thres=0.45, nms="kernel", stem="kernel")
+    n0 = pipeline.graph_count(model)
+    before = (cuda_stem.LAUNCHES, cuda_nms.LAUNCHES)
+    with pytest.raises(RuntimeError):
+        pipeline.detect_batch_graph(model, rgb, nir, hw, **kw)
+    assert pipeline.graph_count(model) == n0
+    assert (cuda_stem.LAUNCHES - before[0], cuda_nms.LAUNCHES - before[1]) == (2, 1)

@@ -111,7 +111,7 @@ def test_walk_covers_the_training_cli_modules():
                  "evalmap.voc_map", "evalmap.coco_map", "utils.callbacks",
                  "utils.checkpoint", "utils.profiling", "tools.make_synth_dataset",
                  "tools.loader_bench",
-                 "train.__main__"):
+                 "train.__main__", "predict", "get_map", "ops.consts"):
         assert f"dcfa_yolo_tpu_torch.{name}" in names
 
 
@@ -131,3 +131,34 @@ def test_training_cli_raises_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run(["--save-dir", str(tmp_path)])
     assert not any(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("cli", ["predict", "get_map"])
+def test_serving_clis_raise_without_cuda(tmp_path, cli):
+    """`python -m dcfa_yolo_tpu_torch.predict` and `.get_map` run on the card
+    unless `--device cpu` is passed; without a card they fail, in a fresh
+    process and in-process, before writing any output."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available here: the default device is usable")
+    import importlib
+
+    (tmp_path / "classes.txt").write_text("obj\n")
+    argv = ["--input-shape", "64", "64", "--classes-path", str(tmp_path / "classes.txt")]
+    if cli == "predict":
+        argv += ["--mode", "predict", "--output", str(tmp_path / "out.png"),
+                 "--rgb", str(REPO / "img" / "sample_rgb.png"),
+                 "--nir", str(REPO / "img" / "sample_nir.png")]
+    else:
+        sets = tmp_path / "VOCdevkit" / "VOC2007" / "ImageSets" / "Main"
+        sets.mkdir(parents=True)
+        (sets / "test.txt").write_text("000000\n")
+        argv += ["--map-mode", "1", "--vocdevkit-path", str(tmp_path / "VOCdevkit"),
+                 "--map-out-path", str(tmp_path / "map_out")]
+    proc = subprocess.run([sys.executable, "-m", f"dcfa_yolo_tpu_torch.{cli}"] + argv,
+                          cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        importlib.import_module(f"dcfa_yolo_tpu_torch.{cli}").run(argv)
+    assert not (tmp_path / "out.png").exists()
+    assert not any((tmp_path / "map_out" / "detection-results").glob("*.txt"))
