@@ -11,8 +11,10 @@ float32 instantiation, and kernel B in its mAP epoch), the stem split probe
 graph, the captured serving pipeline (`detect_batch_graph`, kernels A and
 B inside one CUDA graph a key, held bit-equal to the eager pipeline), the
 trained-weights fixture served end to end, the serving CLIs
-(`python -m dcfa_yolo_tpu_torch.predict` / `.get_map`, in-process) and the
-bench; it checks that each path went through its kernels and agrees with
+(`python -m dcfa_yolo_tpu_torch.predict` / `.get_map`, in-process), weights
+in and out (the reference's `.pth` against its own outputs and served
+through the graph, the export to its `.npz` and back, the `torch.export`
+artifact of the deploy pipeline) and the bench; it checks that each path went through its kernels and agrees with
 its all-plain (or train-graph, or eager) version.
 
     python3 chip_smoke.py
@@ -1152,6 +1154,7 @@ def phase_trained(dev, pairs):
     print(f"[trained] bf16 served graph vs float32 served graph (reported): counts equal "
           f"{all(c == k for c, k in counts)}, classes equal {classes}, max |Δbox| "
           f"{box:.4g} px, max |Δscore| {score:.4g} (slot by slot)")
+    return held
 
 
 def phase_cli(dev, data_dir):
@@ -1232,6 +1235,181 @@ def phase_cli(dev, data_dir):
     print(f"[cli] get_map --no-auto-raise with a binding cap exits non-zero: {code}")
 
 
+def phase_interop(dev, pairs, trained):
+    """Weights in and out, at phi='n' 640²:
+      1. the golden manifest's synthetic weights written as the reference's
+         `.pth`, loaded by `YOLOPredictor(model_path=...)` in float32 (TF32
+         off): the forward against the reference's own outputs
+         (`tests/goldens/model_fwd.npz`) at tests/test_model_parity.py's
+         limits (`utils/golden.py::golden_errors`);
+      2. the same `.pth` served in bf16 through the captured graph at b1 and
+         b8, conf 0.001: kernels A and B launched 2 and 1 times a replay;
+         per-anchor predictions against kernel A's plain version at
+         [serve]'s limits (scores 0.005, boxes 0.5 px, classes equal), NMS
+         kernel == plain on the same predictions;
+      3. the trained fixture exported to the reference's `.npz` and loaded
+         back: the state_dict bit-equal, the served detections of
+         [trained]'s 8 pairs `torch.equal` to [trained]'s in float32 and bf16;
+      4. the deploy pipeline with those weights exported by
+         `python -m dcfa_yolo_tpu_torch.tools.export` (in-process; its own
+         round trip holds the loaded artifact equal to the in-process plain
+         pipeline), then run on the card on 8 synthetic 640² pairs against
+         the in-process plain pipeline at rtol 1e-5, atol 1e-4
+         (tests/test_export_stablehlo.py:56-57); export seconds, bytes, and
+         ms a call of the artifact beside the captured graph's.
+    Returns the launches of step 2."""
+    import tempfile
+
+    from PIL import Image
+
+    from dcfa_yolo_tpu_torch.config import ModelConfig
+    from dcfa_yolo_tpu_torch.infer.pipeline import (detect_batch_graph, predict,
+                                                    release_graphs)
+    from dcfa_yolo_tpu_torch.infer.predictor import YOLOPredictor
+    from dcfa_yolo_tpu_torch.models.convert import from_jax_variables
+    from dcfa_yolo_tpu_torch.models.torch_export import save_torch_npz
+    from dcfa_yolo_tpu_torch.models.yolo import DCFAYolo
+    from dcfa_yolo_tpu_torch.ops import cuda_nms, cuda_stem
+    from dcfa_yolo_tpu_torch.ops.nms import batched_nms
+    from dcfa_yolo_tpu_torch.tools import export
+    from dcfa_yolo_tpu_torch.tools.make_synth_dataset import make_dataset
+    from dcfa_yolo_tpu_torch.utils import golden
+    from dcfa_yolo_tpu_torch.utils.checkpoint import load_variables
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_interop_")
+    try:
+        # 1. the reference's .pth against the reference's outputs, float32
+        manifest = golden.load_manifest(os.path.join(here, "tests", "goldens",
+                                                     "manifest.json"))
+        pth = os.path.join(tmp, "reference.pth")
+        torch.save({k: torch.from_numpy(v)
+                    for k, v in golden.synth_state_dict(manifest, SEED).items()}, pth)
+        with np.load(os.path.join(here, "tests", "goldens", "model_fwd.npz")) as z:
+            goldens = {k: z[k] for k in z.files}
+        pred = YOLOPredictor(["object"], input_shape=(640, 640), model_path=pth,
+                             compute_dtype="float32", device=dev)
+        errors = golden.golden_errors(pred.model, goldens)
+        worst = max(errors, key=errors.get)
+        print(f"[interop] reference .pth ({len(manifest)} keys) through YOLOPredictor, "
+              f"float32, TF32 off, against model_fwd.npz: {len(errors)} outputs, worst "
+              f"{worst} at {errors[worst]:.4g} of its limit (test_model_parity.py's "
+              f"rtol/atol; 1 = at the limit)")
+        check(all(v <= 1.0 for v in errors.values()),
+              f"the reference .pth misses the golden limits: {errors}")
+        del pred
+
+        # 2. the same weights served in bf16 through the captured graph
+        kw = dict(input_shape=(640, 640), phi="n", confidence=0.001, nms_iou=0.5,
+                  compute_dtype="bfloat16", model_path=pth, device=dev)
+        pred = YOLOPredictor(["object"], **kw)
+        r1, n1 = serve_inputs(1, SEED + 110)
+        rgb8, nir8 = serve_inputs(8, SEED + 111)
+        pred.detect(r1[0], n1[0])
+        pred.detect_batch(rgb8, nir8)  # both keys captured: the count is replays only
+        cuda_stem.LAUNCHES = cuda_nms.LAUNCHES = 0
+        dets = [pred.detect(r1[0], n1[0])] + pred.detect_batch(rgb8, nir8)
+        torch.cuda.synchronize()
+        launches = {"stem_eval": cuda_stem.LAUNCHES, "nms_suppress": cuda_nms.LAUNCHES}
+        check(launches == {"stem_eval": 4, "nms_suppress": 2},
+              f"reference .pth served at b1 and b8: expected 2 stem and 1 NMS launches "
+              f"a replay, got {launches} over two replays")
+        for boxes, scores, _ in dets:
+            check(len(boxes) > 0 and np.isfinite(boxes).all() and np.isfinite(scores).all(),
+                  "reference .pth served: no or non-finite detections")
+        bk, sk, ck = predict(pred.model, rgb8, nir8, stem="kernel")
+        with plain_stem_kernel():
+            bp, sp, cp = predict(pred.model, rgb8, nir8, stem="kernel")
+        box_err = ((bk - bp).abs().max() * 640).item()
+        score_err = (sk - sp).abs().max().item()
+        nms_kw = dict(conf_thres=0.001, iou_thres=0.5, pre_nms_topk=1024, max_det=300)
+        rk = batched_nms(bk, sk, ck, backend="kernel", **nms_kw)
+        rp = batched_nms(bk, sk, ck, backend="plain", **nms_kw)
+        nms_equal = equal_results(rk, rp)
+        print(f"[interop] reference .pth served bf16 through the graph, b1 + b8: launches "
+              f"{launches}, detections {[len(d[0]) for d in dets]}; b8 per-anchor against "
+              f"kernel A's plain version: max |Δscore| {score_err:.3g} (tol 0.005), max "
+              f"|Δbox| {box_err:.3g} px (tol 0.5), classes equal {torch.equal(ck, cp)}; "
+              f"NMS kernel == plain {nms_equal}")
+        check(torch.equal(ck, cp) and score_err <= 0.005 and box_err <= 0.5 and nms_equal,
+              "the served reference .pth disagrees with the plain versions")
+        pred.release_graphs()
+        del pred
+
+        # 3. the trained fixture out to the reference's .npz and back in
+        sd = from_jax_variables(trained_variables())
+        npz = os.path.join(tmp, "trained.npz")
+        save_torch_npz(npz, sd, num_classes=1)
+        back = load_variables(npz, lambda: DCFAYolo(ModelConfig(num_classes=1,
+                                                                phi="n")).state_dict())
+        check(back.keys() == sd.keys() and all(torch.equal(back[k], sd[k]) for k in sd),
+              "the trained weights changed on the way out to the reference's .npz and back")
+        for dtype in ("float32", "bfloat16"):
+            pred = YOLOPredictor(["tomato_bunch"], input_shape=(640, 640), phi="n",
+                                 confidence=0.5, nms_iou=0.5, max_det=100,
+                                 pre_nms_topk=2048, compute_dtype=dtype, model_path=npz,
+                                 device=dev)
+            served = [pred.detect(r, n) for r, n in pairs]
+            same = all(all(np.array_equal(a, b) for a, b in zip(x, y))
+                       for x, y in zip(served, trained[dtype]))
+            print(f"[interop] trained fixture → reference .npz ({os.path.getsize(npz)} "
+                  f"bytes) → YOLOPredictor {dtype}: state_dict bit-equal, detections "
+                  f"{[len(d[0]) for d in served]} equal to [trained]'s: {same}")
+            check(same, f"the reimported .npz serves other detections than [trained] "
+                        f"in {dtype}")
+            pred.release_graphs()
+            del pred
+
+        # 4. the deploy pipeline as a torch.export artifact
+        classes = os.path.join(tmp, "classes.txt")
+        with open(classes, "w") as f:
+            f.write("tomato_bunch\n")
+        art = os.path.join(tmp, "pipeline.pt2")
+        out = export.run([art, "--model-path", npz, "--classes-path", classes,
+                          "--batch", "8", "--size", "640", "--device", str(dev)])
+        program = torch.export.load(art).module()
+        make_dataset(os.path.join(tmp, "sq"), 8, (640, 640))
+        sq = os.path.join(tmp, "sq", "VOCdevkit", "VOC2007")
+        ids = sorted(f[:-4] for f in os.listdir(os.path.join(sq, "Annotations")))
+        rgb, nir = (torch.from_numpy(np.stack([
+            np.asarray(Image.open(os.path.join(sq, sub, i + ".png"))) for i in ids])).to(dev)
+            for sub in ("JPEGImages_rgb", "JPEGImages_nir"))
+        hw = torch.full((8, 2), 640.0, device=dev)
+        with torch.inference_mode():
+            got = program(rgb, nir, hw)
+            want = out["pipeline"](rgb, nir, hw)
+        bad = []
+        for name in want:
+            a, b = got[name], want[name]
+            ok = (torch.allclose(a, b, rtol=1e-5, atol=1e-4) if a.is_floating_point()
+                  else torch.equal(a, b))
+            if not ok:
+                bad.append(name)
+        n_det = int(want["valid"].sum())
+        check(not bad and n_det > 0, f"the exported artifact differs from the in-process "
+              f"plain pipeline in {bad} ({n_det} detections)")
+        model = out["pipeline"].model
+        graph_kw = dict(conf_thres=0.5, iou_thres=0.3, max_det=300, pre_nms_topk=1024)
+        art_ms = host_ms(lambda: program(rgb, nir, hw))
+        graph_ms = host_ms(lambda: detect_batch_graph(model, rgb, nir, hw, **graph_kw))
+        plain_ms = host_ms(lambda: out["pipeline"](rgb, nir, hw))
+        print(f"[interop] torch.export of the deploy pipeline (b8 640², bf16, plain stem "
+              f"and NMS): export {out['export_seconds']:.1f} s, {out['bytes']} bytes; "
+              f"loaded artifact vs in-process plain pipeline on 8 synthetic pairs "
+              f"({n_det} detections): within rtol 1e-5 / atol 1e-4 in every field")
+        print(f"[interop] b8 ms a call (host clock, 20 calls, each ending in a "
+              f"synchronise): artifact {art_ms:.3f}, in-process plain pipeline "
+              f"{plain_ms:.3f}, captured graph with kernels A and B {graph_ms:.3f} "
+              f"| {CARD}")
+        release_graphs(model)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_bench():
     """The port's bench at BENCH_BATCH=32, BENCH_ITERS=5, with the stem and
     NMS kernels' launch counts read around it; its JSON on a line of its
@@ -1284,8 +1462,10 @@ def main() -> int:
         phase_graph(dev)
         data_dir, pairs = synth_pairs(8)
         try:
-            phase_trained(dev, pairs)
+            trained = phase_trained(dev, pairs)
             phase_cli(dev, data_dir)
+            for name, n in phase_interop(dev, pairs, trained).items():
+                launches[name] += n
         finally:
             shutil.rmtree(data_dir, ignore_errors=True)
         phase_bench()

@@ -56,10 +56,12 @@ class YOLOPredictor:
     `device="cpu"` is passed.
 
     Class names come from `class_names` or, without it, from the file
-    `classes_path`.  Weights come from `model_path` (a checkpoint of the
-    port, `utils/checkpoint.py::load_variables`: the EMA weights first, in
-    the train graph's names, then transformed for the chosen graph; the JAX
-    package's `.ckpt` and the reference's `.pth` / `.npz` raise), from
+    `classes_path`.  Weights come from `model_path` (a file in any of the
+    four formats of `utils/checkpoint.py::load_variables`, told apart by
+    content: a port checkpoint, the reference's `.pth` or `.npz`, imported
+    over `init_model(cfg, seed)`'s weights, or the JAX package's msgpack
+    `.ckpt`; the EMA weights first, in the train graph's names, then
+    transformed for the chosen graph), from
     `variables` (a flax `{"params", "batch_stats"}` tree of arrays, carried
     by `models/convert.py`, that must match the chosen graph: the output of
     the JAX `deploy_variables` for deploy=True, of `fold_shuffle_variables`
@@ -108,8 +110,11 @@ class YOLOPredictor:
         if model_path:
             from dcfa_yolo_tpu_torch.utils.checkpoint import load_variables
 
-            state_dict = serving_state_dict(load_variables(model_path), deploy,
-                                            fold_shuffle)
+            def template():
+                return init_model(self.cfg, seed, "cpu").state_dict()
+
+            state_dict = serving_state_dict(load_variables(model_path, template),
+                                            deploy, fold_shuffle)
         if variables is not None or state_dict is not None:
             model = DCFAYolo(self.cfg, deploy=deploy, fold_shuffle=fold_shuffle)
             model.load_state_dict(from_jax_variables(variables) if state_dict is None

@@ -7,7 +7,9 @@ host-to-device copy, which a CUDA graph cannot capture.  A copy made while a
 capture is under way raises there, so a graph's eager warm-up call, with the
 same shapes, fills the cache first.  The copies are made outside inference
 mode, so that the training forward can use a matrix first made by a serving
-call.  Callers must not write to them.
+call.  Under `torch.export` a constant not yet made is made for the trace
+only and not kept: the cache never holds a traced tensor.  Callers must not
+write to them.
 """
 
 from __future__ import annotations
@@ -29,5 +31,6 @@ def device_const(key: Hashable, make: Callable, dtype: torch.dtype,
         with torch.inference_mode(False):
             t = torch.as_tensor(make(), dtype=torch.float32).to(device=device,
                                                                 dtype=dtype)
-        _CACHE[k] = t
+        if not torch.compiler.is_exporting():
+            _CACHE[k] = t
     return t

@@ -49,31 +49,43 @@ def mask_layout(k: int) -> Tuple[int, int, int]:
 
 def greedy_suppress_plain(boxes: torch.Tensor, alive: torch.Tensor,
                           iou_thres: float) -> torch.Tensor:
-    """Plain PyTorch version: one pass per candidate up to the last alive
-    one, each kept row's IoU computed on the fly with the Pallas expression
-    order, `inter / (area_j + area_i − inter + 1e-7)`.
+    """Plain PyTorch version: the IoU relation (`_relation`, with the Pallas
+    expression order `inter / (area_j + area_i − inter + 1e-7)`) built
+    `_ROWS_PER_STEP` rows at a time, then each row's keep update in
+    candidate order, up to the last alive candidate.  Under CUDA-graph
+    capture or `torch.export`, which cannot read that index back to the
+    host, all K rows: the updates past it change nothing.
     boxes (B, K, 4) float32 xyxy, alive (B, K) bool → keep (B, K) bool."""
+    alive = alive.clone()
+    k = alive.shape[-1]
+    if torch.compiler.is_exporting() or (boxes.is_cuda
+                                         and torch.cuda.is_current_stream_capturing()):
+        n = k
+    else:
+        pos = torch.arange(k, device=boxes.device)
+        n = int(torch.where(alive, pos + 1, 0).max()) if alive.numel() else 0
+    for r0 in range(0, n, _ROWS_PER_STEP):
+        rel = _relation(boxes, slice(r0, min(r0 + _ROWS_PER_STEP, n)), iou_thres)
+        for t in range(rel.shape[1]):
+            alive &= ~(rel[:, t] & alive[:, r0 + t:r0 + t + 1])
+    return alive
+
+
+def _relation(boxes: torch.Tensor, rows: slice, iou_thres: float) -> torch.Tensor:
+    """(B, R, K) bool: for rows i in `rows`, IoU(i, j) > thr and j > i, in
+    float32 with the expression order of the Pallas kernel."""
+    k = boxes.shape[1]
     x1, y1, x2, y2 = boxes.float().unbind(-1)
     area = (x2 - x1) * (y2 - y1)
     thr = torch.full((), iou_thres, dtype=torch.float32, device=boxes.device)
-    alive = alive.clone()
-    k = alive.shape[-1]
-    pos = torch.arange(k, device=boxes.device)
-    if boxes.is_cuda and torch.cuda.is_current_stream_capturing():
-        # a CUDA graph cannot read the last alive index back to the host;
-        # the passes past it change nothing
-        n = k
-    else:
-        n = int(torch.where(alive, pos + 1, 0).max()) if alive.numel() else 0
-    for i in range(n):
-        bx1, by1 = x1[:, i:i + 1], y1[:, i:i + 1]
-        bx2, by2 = x2[:, i:i + 1], y2[:, i:i + 1]
-        iw = torch.clamp(torch.minimum(x2, bx2) - torch.maximum(x1, bx1), min=0.0)
-        ih = torch.clamp(torch.minimum(y2, by2) - torch.maximum(y1, by1), min=0.0)
-        inter = iw * ih
-        iou = inter / (area + area[:, i:i + 1] - inter + 1e-7)
-        alive &= ~((iou > thr) & alive[:, i:i + 1] & (pos > i))
-    return alive
+    col = torch.arange(k, device=boxes.device)
+    iw = torch.clamp(torch.minimum(x2[:, None, :], x2[:, rows, None])
+                     - torch.maximum(x1[:, None, :], x1[:, rows, None]), min=0.0)
+    ih = torch.clamp(torch.minimum(y2[:, None, :], y2[:, rows, None])
+                     - torch.maximum(y1[:, None, :], y1[:, rows, None]), min=0.0)
+    inter = iw * ih
+    iou = inter / (area[:, None, :] + area[:, rows, None] - inter + 1e-7)
+    return (iou > thr) & (col[None, None, :] > col[rows][None, :, None])
 
 
 def _pack_words(bits: torch.Tensor, words: int) -> torch.Tensor:
@@ -95,21 +107,10 @@ def suppress_mask_plain(boxes: torch.Tensor, alive: torch.Tensor,
     fixes the shape: the bits do not depend on it."""
     b, k = alive.shape
     _, w, _ = mask_layout(k)
-    x1, y1, x2, y2 = boxes.float().unbind(-1)
-    area = (x2 - x1) * (y2 - y1)
-    thr = torch.full((), iou_thres, dtype=torch.float32, device=boxes.device)
-    col = torch.arange(k, device=boxes.device)
     out = torch.empty((b, k, w), dtype=torch.int64, device=boxes.device)
     for r0 in range(0, k, _ROWS_PER_STEP):
         r = slice(r0, min(r0 + _ROWS_PER_STEP, k))
-        iw = torch.clamp(torch.minimum(x2[:, None, :], x2[:, r, None])
-                         - torch.maximum(x1[:, None, :], x1[:, r, None]), min=0.0)
-        ih = torch.clamp(torch.minimum(y2[:, None, :], y2[:, r, None])
-                         - torch.maximum(y1[:, None, :], y1[:, r, None]), min=0.0)
-        inter = iw * ih
-        iou = inter / (area[:, None, :] + area[:, r, None] - inter + 1e-7)
-        later = col[None, None, :] > col[r][None, :, None]
-        out[:, r] = _pack_words((iou > thr) & later, w)
+        out[:, r] = _pack_words(_relation(boxes, r, iou_thres), w)
     return torch.where(out >= 2 ** 31, out - 2 ** 32, out).to(torch.int32)
 
 

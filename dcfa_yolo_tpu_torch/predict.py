@@ -30,8 +30,10 @@ IMAGE_EXTS = (".bmp", ".jpg", ".jpeg", ".png", ".tif", ".tiff")
 def add_model_args(p: argparse.ArgumentParser) -> None:
     """The flags the predict and get_map CLIs share."""
     p.add_argument("--model-path", default="",
-                   help="a checkpoint of the port (utils/checkpoint.py); "
-                        "seeded random weights without one")
+                   help="weights: a port checkpoint, the reference's .pth / .npz "
+                        "or the JAX package's .ckpt, by content "
+                        "(utils/checkpoint.py::load_variables); seeded random "
+                        "weights without one")
     p.add_argument("--classes-path", default="model_data/voc_classes.txt")
     p.add_argument("--input-shape", type=int, nargs=2, default=[640, 640])
     p.add_argument("--phi", default="n")

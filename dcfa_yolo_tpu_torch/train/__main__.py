@@ -54,7 +54,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--train-annotation", default="2007_train.txt")
     p.add_argument("--val-annotation", default="2007_val.txt")
     p.add_argument("--model-path", default="",
-                   help="a checkpoint of the port to start from (its EMA weights)")
+                   help="weights to start from, loaded over the init: a port or "
+                        "JAX .ckpt (EMA weights first) or the reference's .pth / .npz "
+                        "(a single-modal backbone.* file fills both backbones)")
     p.add_argument("--pretrained", action="store_true", help="not ported yet")
     p.add_argument("--model-dir", default="model_data", help="not ported yet")
     p.add_argument("--resume", default="",
@@ -175,11 +177,15 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict:
         print(f"Resume from {args.resume}.")
         resume = load_checkpoint(args.resume)
         model.load_state_dict({**resume["params"], **resume["batch_stats"]}, strict=True)
-    elif args.model_path:
-        print(f"Load weights {args.model_path}.")
-        model.load_state_dict(load_variables(args.model_path), strict=True)
     else:
         reference_weights_init(model, seed=tc.seed, init_type=args.init_type)
+    if args.model_path and not args.resume:
+        # over the init (`train.py:195-197`): a reference .pth / .npz imports
+        # non-strictly (a single-modal `backbone.*` file fills both backbones,
+        # the rest stays at init); a port or JAX checkpoint must be complete
+        print(f"Load weights {args.model_path}.")
+        model.load_state_dict(load_variables(args.model_path, model.state_dict),
+                              strict=True)
 
     spec = None
     if args.fold_shuffle:

@@ -423,3 +423,75 @@ def test_failed_capture_raises(cuda, serving_models, monkeypatch):
         pipeline.detect_batch_graph(model, rgb, nir, hw, **kw)
     assert pipeline.graph_count(model) == n0
     assert (cuda_stem.LAUNCHES - before[0], cuda_nms.LAUNCHES - before[1]) == (2, 1)
+
+
+# ---------------------------------------------------------------------------
+# the reference's weights on the card (models/torch_import.py)
+
+@pytest.fixture(scope="module")
+def reference_pth(tmp_path_factory):
+    """The golden manifest's synthetic weights as the reference's `.pth`."""
+    from pathlib import Path
+
+    from dcfa_yolo_tpu_torch.utils import golden
+
+    repo = Path(__file__).resolve().parent.parent
+    sd = golden.synth_state_dict(
+        golden.load_manifest(str(repo / "tests" / "goldens" / "manifest.json")), 0)
+    path = tmp_path_factory.mktemp("reference") / "reference.pth"
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, str(path))
+    with np.load(repo / "tests" / "goldens" / "model_fwd.npz") as z:
+        goldens = {k: z[k] for k in z.files}
+    return str(path), goldens
+
+
+def test_reference_pth_meets_goldens(cuda, reference_pth):
+    """The reference's `.pth` through `YOLOPredictor(model_path=...)` in
+    float32 (TF32 off) against the reference's own outputs, at
+    tests/test_model_parity.py's limits."""
+    from dcfa_yolo_tpu_torch.infer.predictor import YOLOPredictor
+    from dcfa_yolo_tpu_torch.utils.golden import golden_errors
+
+    path, goldens = reference_pth
+    pred = YOLOPredictor(["object"], input_shape=(640, 640), model_path=path,
+                         compute_dtype="float32", device=cuda)
+    errors = golden_errors(pred.model, goldens)
+    assert len(errors) == 12 and all(v <= 1.0 for v in errors.values()), errors
+
+
+def test_reference_pth_served_through_the_graph(cuda, reference_pth):
+    """The same `.pth` served in bf16 through the captured graph at b1 and
+    b8: 2 stem and 1 NMS launches a replay; per-anchor predictions against
+    kernel A's plain version at the serving limits (scores 0.005, boxes
+    0.5 px, classes equal), NMS kernel == plain on them."""
+    from dcfa_yolo_tpu_torch.infer import pipeline
+    from dcfa_yolo_tpu_torch.infer.predictor import YOLOPredictor
+    from dcfa_yolo_tpu_torch.ops.nms import batched_nms
+
+    pred = YOLOPredictor(["object"], input_shape=(640, 640), confidence=0.001,
+                         nms_iou=0.5, compute_dtype="bfloat16",
+                         model_path=reference_pth[0], device=cuda)
+    rgb1, nir1, _ = _serve_pairs(1, 21)
+    rgb8, nir8, _ = _serve_pairs(8, 22)
+    pred.detect(rgb1[0], nir1[0])
+    pred.detect_batch(rgb8, nir8)
+    before = (cuda_stem.LAUNCHES, cuda_nms.LAUNCHES)
+    dets = [pred.detect(rgb1[0], nir1[0])] + pred.detect_batch(rgb8, nir8)
+    torch.cuda.synchronize()
+    assert (cuda_stem.LAUNCHES - before[0], cuda_nms.LAUNCHES - before[1]) == (4, 2)
+    assert all(len(b) > 0 and np.isfinite(b).all() for b, _, _ in dets)
+    bk, sk, ck = pipeline.predict(pred.model, rgb8, nir8, stem="kernel")
+    kernel = pipeline.stem_eval
+    pipeline.stem_eval = cuda_stem.stem_eval_plain
+    try:
+        bp, sp, cp = pipeline.predict(pred.model, rgb8, nir8, stem="kernel")
+    finally:
+        pipeline.stem_eval = kernel
+    assert torch.equal(ck, cp)
+    assert (sk - sp).abs().max().item() <= 0.005
+    assert (bk - bp).abs().max().item() * 640 <= 0.5
+    kw = dict(conf_thres=0.001, iou_thres=0.5, pre_nms_topk=1024, max_det=300)
+    rk = batched_nms(bk, sk, ck, backend="kernel", **kw)
+    rp = batched_nms(bk, sk, ck, backend="plain", **kw)
+    assert all(torch.equal(getattr(rk, f), getattr(rp, f)) for f in _GRAPH_FIELDS)
+    pred.release_graphs()

@@ -377,13 +377,16 @@ class TestPredictor:
 
 
 def test_predictor_constructor_contract(tmp_path, ckpt_paths):
-    """Foreign weight files raise naming queue 1 item 12; pair_backbones and
-    split_neck_concats raise naming item 11, before any device is touched;
-    class names from neither argument raise."""
+    """Files that are no weights of this model raise: a `.npz` none of whose
+    keys the reference model has, and a truncated msgpack file, which is
+    none of the four formats; pair_backbones and split_neck_concats raise
+    naming item 11, before any device is touched; class names from neither
+    argument raise."""
     np.savez(tmp_path / "w.npz", a=np.zeros(3))
-    (tmp_path / "w.ckpt").write_bytes(b"\x81\xa6params")  # msgpack, as the JAX package's
-    for path in (tmp_path / "w.npz", tmp_path / "w.ckpt"):
-        with pytest.raises(ValueError, match="item 12"):
+    (tmp_path / "w.ckpt").write_bytes(b"\x81\xa6params")  # msgpack, cut short
+    for path, match in ((tmp_path / "w.npz", "none of its 1 keys"),
+                        (tmp_path / "w.ckpt", "none of the weight formats")):
+        with pytest.raises(ValueError, match=match):
             YOLOPredictor(model_path=str(path), classes_path=ckpt_paths[1],
                           input_shape=(64, 64), device="cpu")
     for flag in ("pair_backbones", "split_neck_concats"):

@@ -152,14 +152,19 @@ def test_left_out_flags_raise(dataset, tmp_path):
 
 
 def test_checkpoint_loader_refuses_foreign_files(tmp_path):
+    """`load_checkpoint` (what --resume reads) takes only the port's own
+    checkpoints and names the formats `load_variables` takes as weights; a
+    reference `.pth` whose tensor does not fit the model raises."""
     msgpack = tmp_path / "jax.ckpt"
     msgpack.write_bytes(b"\x86\xa6params\x80")
-    with pytest.raises(ValueError, match="queue 1, item 12"):
+    with pytest.raises(ValueError, match="only format that resumes.*msgpack .ckpt"):
         load_checkpoint(str(msgpack))
     pth = tmp_path / "ref.pth"
-    torch.save({"backbone.stem.conv.weight": torch.zeros(2)}, pth)
-    with pytest.raises(ValueError, match="queue 1, item 12"):
-        load_variables(str(pth))
+    torch.save({"backbone.stem.conv.0.weight": torch.zeros(2)}, pth)
+    with pytest.raises(ValueError, match="only format that resumes.*torch.save .pth"):
+        load_checkpoint(str(pth))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        load_variables(str(pth), DCFAYolo(ModelConfig(num_classes=1, phi="n")).state_dict)
     with pytest.raises(KeyError):
         save_checkpoint(str(tmp_path / "x.ckpt"), {"params": {}})
 
