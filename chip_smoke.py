@@ -14,8 +14,11 @@ trained-weights fixture served end to end, the serving CLIs
 (`python -m dcfa_yolo_tpu_torch.predict` / `.get_map`, in-process), weights
 in and out (the reference's `.pth` against its own outputs and served
 through the graph, the export to its `.npz` and back, the `torch.export`
-artifact of the deploy pipeline) and the bench; it checks that each path went through its kernels and agrees with
-its all-plain (or train-graph, or eager) version.
+artifact of the deploy pipeline), the opt-in serving graphs (paired
+backbones, split neck concats, with and without deploy, against the graphs
+they stand in for), the captured pipeline at 320², 1280² and 320×416 and
+at phi s-x, and the bench; it checks that each path went through its
+kernels and agrees with its all-plain (or train-graph, or eager) version.
 
     python3 chip_smoke.py
 
@@ -1064,6 +1067,41 @@ class plain_stem_kernel:
         pipeline.stem_eval = self.kernel
 
 
+def per_image_agreement(served, ref):
+    """Counts, classes equal, max |Δbox| px and max |Δscore| over the
+    pairs, slot by slot; two lists of (boxes, scores, classes)."""
+    counts, classes, box, score = [], True, 0.0, 0.0
+    for (bs, ss, cs), (rb, rs, rc) in zip(served, ref):
+        counts.append((len(bs), len(rb)))
+        if len(bs) != len(rb):
+            continue
+        classes &= bool(np.array_equal(cs, rc))
+        if len(bs):
+            box = max(box, float(np.abs(bs - rb).max()))
+            score = max(score, float(np.abs(ss - rs).max()))
+    return counts, classes, box, score
+
+
+def nearest_slots(served, ref):
+    """`ref`'s detections of each image put in the slots of `served`'s
+    nearest boxes (greedy, nearest pair first), so that two detections of
+    near-equal score that trade places compare with their own
+    counterparts.  Images whose counts differ are left as they are."""
+    out = []
+    for (bs, _, _), (rb, rs, rc) in zip(served, ref):
+        if len(bs) != len(rb) or not len(bs):
+            out.append((rb, rs, rc))
+            continue
+        dist = np.abs(bs[:, None] - rb[None]).max(-1)
+        order = np.full(len(bs), -1)
+        for flat in np.argsort(dist, axis=None):
+            i, j = divmod(int(flat), len(rb))
+            if order[i] < 0 and j not in order:
+                order[i] = j
+        out.append((rb[order], rs[order], rc[order]))
+    return out
+
+
 def phase_trained(dev, pairs):
     """Trained weights (`tests/fixtures/ab_weights_f16.npz`, loaded through
     `models/convert.py::unflatten`) on 8 synthetic 480×360 pairs at conf
@@ -1093,20 +1131,6 @@ def phase_trained(dev, pairs):
         k = int(res.valid[0].sum())
         return tuple(t[0][:k].cpu().numpy() for t in (res.boxes, res.scores, res.classes))
 
-    def per_image(served, ref):
-        """Counts, classes equal, max |Δbox| px and max |Δscore| over the
-        pairs, slot by slot; two lists of (boxes, scores, classes)."""
-        counts, classes, box, score = [], True, 0.0, 0.0
-        for (bs, ss, cs), (rb, rs, rc) in zip(served, ref):
-            counts.append((len(bs), len(rb)))
-            if len(bs) != len(rb):
-                continue
-            classes &= bool(np.array_equal(cs, rc))
-            if len(bs):
-                box = max(box, float(np.abs(bs - rb).max()))
-                score = max(score, float(np.abs(ss - rs).max()))
-        return counts, classes, box, score
-
     def eager(model, stem):
         return [dets(detect_batch(model, r[None], n[None],
                                   np.array([r.shape[:2]], np.float32),
@@ -1132,7 +1156,7 @@ def phase_trained(dev, pairs):
                 ref = eager(pred.model, "kernel")
         else:
             ref = eager(pred.model, "plain")
-        counts, classes, box, score = per_image(served, ref)
+        counts, classes, box, score = per_image_agreement(served, ref)
         held[dtype] = served
         print(f"[trained] {dtype}: served graph (launches {launches}) vs the plain "
               f"versions' eager path: detections {[c for c, _ in counts]} / "
@@ -1144,13 +1168,13 @@ def phase_trained(dev, pairs):
               f"trained {dtype}: classes equal {classes}, max |Δbox| {box:.4g} px "
               f"(limit 1), max |Δscore| {score:.4g} (limit {score_tol:g})")
         if dtype == "bfloat16":
-            counts, classes, box, score = per_image(served, eager(pred.model, "plain"))
+            counts, classes, box, score = per_image_agreement(served, eager(pred.model, "plain"))
             print(f"[trained] bf16 served graph vs the bf16 ConvMaxpool stem and plain "
                   f"NMS (reported): counts equal {all(c == k for c, k in counts)}, "
                   f"classes equal {classes}, max |Δbox| {box:.4g} px, max |Δscore| "
                   f"{score:.4g} (slot by slot)")
         pred.release_graphs()
-    counts, classes, box, score = per_image(held["bfloat16"], held["float32"])
+    counts, classes, box, score = per_image_agreement(held["bfloat16"], held["float32"])
     print(f"[trained] bf16 served graph vs float32 served graph (reported): counts equal "
           f"{all(c == k for c, k in counts)}, classes equal {classes}, max |Δbox| "
           f"{box:.4g} px, max |Δscore| {score:.4g} (slot by slot)")
@@ -1410,6 +1434,316 @@ def phase_interop(dev, pairs, trained):
     return launches
 
 
+def per_anchor_gap(a, b, in_hw):
+    """(classes equal, max |Δscore|, max |Δbox| px) between two `predict`
+    results (normalized xyxy boxes, scores, classes) at input shape in_hw."""
+    scale = torch.tensor([in_hw[1], in_hw[0]] * 2, dtype=torch.float32, device=a[0].device)
+    return (bool(torch.equal(a[2], b[2])), (a[1] - b[1]).abs().max().item(),
+            ((a[0] - b[0]).abs() * scale).max().item())
+
+
+def graph_holds(model, inputs, nkw, what):
+    """`detect_batch_graph` against the eager `detect_batch` for each
+    (rgb, nir, image_hw) of `inputs` (same shapes: one key): the first
+    call captures, then one replay a input, each `torch.equal` to its eager
+    call on every field, with the launch counts set to 0 just before the
+    replays and read just after.  Returns ((stem, NMS) launches over the
+    replays, the eager results)."""
+    from dcfa_yolo_tpu_torch.infer.pipeline import detect_batch, detect_batch_graph
+    from dcfa_yolo_tpu_torch.ops import cuda_nms, cuda_stem
+
+    eager = [detect_batch(model, *x, **nkw) for x in inputs]
+    detect_batch_graph(model, *inputs[0], **nkw)
+    cuda_stem.LAUNCHES = cuda_nms.LAUNCHES = 0
+    replays = [detect_batch_graph(model, *x, **nkw) for x in inputs]
+    torch.cuda.synchronize()
+    launches = (cuda_stem.LAUNCHES, cuda_nms.LAUNCHES)
+    for i, (got, want) in enumerate(zip(replays, eager)):
+        bad = [f for f in NMS_FIELDS if not torch.equal(getattr(got, f), getattr(want, f))]
+        check(not bad, f"{what}: replay {i} differs from the eager call in {bad}")
+    return launches, eager
+
+
+def phase_variants(dev, pairs):
+    """[pair] and [split]: the opt-in serving graphs of `YOLOPredictor` on
+    the trained fixture (`tests/fixtures/ab_weights_f16.npz`) and [trained]'s
+    8 synthetic 480×360 pairs at phi='n' 640², conf 0.5, IoU 0.5,
+    `max_det` 100, K 2048, each against the graph it stands in for, on the
+    same weights:
+      * [pair] fold_shuffle + pair_backbones against fold_shuffle;
+      * [split] fold_shuffle + split_neck_concats against fold_shuffle, and
+        deploy + fold_shuffle + split_neck_concats (conv kernels pre-cast)
+        against deploy + fold_shuffle (pre-cast).
+    Each variant is held
+      1. through its graph, image by image, in float32 and in bf16, each
+         detection against the base graph's of the nearest box
+         (`nearest_slots`: two of near-equal score may trade slots): the
+         same number of detections (more than 0 in all) and classes, boxes
+         within 1 px, scores within 1e-3 in float32
+         (tests/test_pair_backbones.py:198-202,
+         tests/test_split_concats.py:139-143) and within [trained]'s 0.005
+         in bf16;
+      2. in bf16 per anchor on the b8 stack, reported: the gap to the
+         base graph, and each graph's gap to the float32 base graph.  Both
+         variants round in another order than their base (the paired CBAMs
+         average per-block means, each rounded to bf16; the split convs sum
+         float32 partials of the bf16 operands, cuDNN's bf16 concat conv
+         rounds as it does), and the card puts their per-anchor gaps past
+         [serve]'s limits (0.005, 0.5 px).  So the stages are held one by
+         one: for [pair] kernel A's two stem maps from the block-diagonal
+         stem's slices `torch.equal` to the unpaired model's; for [split]
+         the parts conv at the P3 fusion (`conv3_for_upsample2.cv1`, b8,
+         80², N(0, 1) bf16 parts) within one bf16 step of the exact conv of
+         its bf16 operands rounded once, and equal to it in at least 99%
+         of the outputs (cuDNN's concat conv beside it, reported); for both
+         kernel B `torch.equal` to its plain version on the variant's
+         predictions;
+      3. in bf16 through the captured graph at b1 and b8: one replay each
+         `torch.equal` to the eager call, kernels A and B launched 2 and 1
+         times a replay;
+    then its bf16 replay ms a call at b1 and b8 beside its base graph's
+    (host clock, 20 calls each ending in a synchronise; uint8 480×360 host
+    input copied in), and for [pair] also the deploy + fold + pair graph's.
+    Returns the launches of step 3 over all variants."""
+    from dcfa_yolo_tpu_torch.infer.pipeline import (_kernel_stem_outs, detect_batch_graph,
+                                                    predict, release_graphs)
+    from dcfa_yolo_tpu_torch.infer.predictor import YOLOPredictor
+    from dcfa_yolo_tpu_torch.models.convert import from_jax_variables
+    from dcfa_yolo_tpu_torch.models.reparam import serving_state_dict
+    from dcfa_yolo_tpu_torch.ops.nms import batched_nms
+
+    sd = from_jax_variables(trained_variables())
+    nkw = dict(conf_thres=0.5, iou_thres=0.5, max_det=100, pre_nms_topk=2048)
+    rgb8 = np.stack([r for r, _ in pairs])
+    nir8 = np.stack([n for _, n in pairs])
+    hw8 = np.tile(np.asarray(rgb8.shape[1:3], np.float32), (len(rgb8), 1))
+    b1 = (rgb8[:1], nir8[:1], hw8[:1])
+    b8 = (rgb8, nir8, hw8)
+
+    def make(dtype, deploy=False, fold_shuffle=True, pair_backbones=False,
+             split_neck_concats=False):
+        return YOLOPredictor(
+            ["tomato_bunch"], input_shape=(640, 640), phi="n", confidence=0.5,
+            nms_iou=0.5, max_det=100, pre_nms_topk=2048, compute_dtype=dtype,
+            state_dict=serving_state_dict(sd, deploy, fold_shuffle, pair_backbones),
+            deploy=deploy, fold_shuffle=fold_shuffle, pair_backbones=pair_backbones,
+            split_neck_concats=split_neck_concats, cast_weights=deploy, device=dev)
+
+    def replay_ms(model):
+        return {b: host_ms(lambda x=x: detect_batch_graph(model, *x, **nkw))
+                for b, x in ((1, b1), (8, b8))}
+
+    runs = (("pair", "fold + pair", dict(pair_backbones=True), {}),
+            ("split", "fold + split", dict(split_neck_concats=True), {}),
+            ("split", "deploy + fold + split", dict(deploy=True, split_neck_concats=True),
+             dict(deploy=True)))
+    total = {"stem_eval": 0, "nms_suppress": 0}
+    for phase, name, graph, base_graph in runs:
+        tag = f"[{phase}] {name}"
+        base_name = "deploy + fold" if base_graph else "fold"
+        # 1. the trained-weights detections image by image, float32 and bf16
+        for dtype, score_tol in (("float32", 1e-3), ("bfloat16", 0.005)):
+            preds = [make(dtype, **g) for g in (graph, base_graph)]
+            served = [[p.detect(r, n) for r, n in pairs] for p in preds]
+            counts, classes, box, score = per_image_agreement(
+                served[0], nearest_slots(*served))
+            print(f"{tag} vs {base_name}, {dtype} through the graph, detections "
+                  f"matched by nearest box: "
+                  f"{[c for c, _ in counts]} / {[k for _, k in counts]}, classes equal "
+                  f"{classes}, max |Δbox| {box:.4g} px (limit 1), max |Δscore| "
+                  f"{score:.4g} (limit {score_tol:g})")
+            check(all(c == k for c, k in counts) and sum(k for _, k in counts) > 0
+                  and classes and box <= 1.0 and score <= score_tol,
+                  f"{tag}: {dtype} detections disagree with the {base_name} graph's")
+            for p in preds:
+                p.release_graphs()
+            if dtype == "float32":
+                f32_base = preds[1].model
+        var, base = (p.model for p in preds)
+        # 2. bf16 per anchor on the b8 stack, reported; the stages held
+        pv, pb, pf = (predict(m, rgb8, nir8) for m in (var, base, f32_base))
+        gaps = [per_anchor_gap(a, b, (640, 640)) for a, b in ((pv, pb), (pv, pf), (pb, pf))]
+        print(f"{tag}, bf16 b8 per anchor (reported): vs {base_name} bf16 classes equal "
+              f"{gaps[0][0]}, max |Δscore| {gaps[0][1]:.4g}, max |Δbox| {gaps[0][2]:.4g} "
+              f"px; vs {base_name} float32 {gaps[1][1]:.4g} / {gaps[1][2]:.4g} px, where "
+              f"{base_name} bf16 is {gaps[2][1]:.4g} / {gaps[2][2]:.4g} px from it")
+        del f32_base
+        if phase == "pair":
+            stems = [_kernel_stem_outs(m, torch.as_tensor(rgb8, device=dev),
+                                       torch.as_tensor(nir8, device=dev))
+                     for m in (var, base)]
+            same = all(torch.equal(a, b) for a, b in zip(*stems))
+            print(f"{tag}: kernel A's stem maps from the block-diagonal stem's slices "
+                  f"torch.equal to the unpaired model's: {same}")
+            check(same, f"{tag}: the paired stem maps differ from the unpaired ones")
+        else:
+            split_conv_stage(var.conv3_for_upsample2.cv1.conv, tag)
+        rk, rp = (batched_nms(*pv, backend=be, **nkw) for be in ("kernel", "plain"))
+        nms_equal = equal_results(rk, rp)
+        print(f"{tag}: kernel B torch.equal to its plain version on the b8 "
+              f"predictions: {nms_equal}")
+        check(nms_equal, f"{tag}: kernel B differs from its plain version")
+        # 3. bf16 through the graph, replays equal to eager, launches counted
+        for b, x in ((1, b1), (8, b8)):
+            (na, nb), _ = graph_holds(var, [x], dict(nkw, nms="kernel", stem="kernel"),
+                                      f"{tag} b{b}")
+            check((na, nb) == (2, 1), f"{tag} b{b}: one replay counted {na} stem and "
+                  f"{nb} NMS launches, expected 2 and 1")
+            total["stem_eval"] += na
+            total["nms_suppress"] += nb
+        ms = {k: replay_ms(m) for k, m in (("variant", var), ("base", base))}
+        print(f"{tag}: bf16 replays torch.equal to eager at b1 and b8, 2 stem + 1 NMS "
+              f"launches a replay; replay ms a call b1 {ms['variant'][1]:.3f} / b8 "
+              f"{ms['variant'][8]:.3f} against the {base_name} graph's b1 "
+              f"{ms['base'][1]:.3f} / b8 {ms['base'][8]:.3f} (host clock, 20 calls each "
+              f"ending in a synchronise) | {CARD}")
+        for m in (var, base):
+            release_graphs(m)
+        if phase == "pair":
+            dep = make("bfloat16", deploy=True, pair_backbones=True).model
+            ms = replay_ms(dep)
+            print(f"[pair] deploy + fold + pair (pre-cast), bf16: replay ms a call b1 "
+                  f"{ms[1]:.3f} / b8 {ms[8]:.3f} | {CARD}")
+            release_graphs(dep)
+    torch.cuda.empty_cache()
+    return total
+
+
+def bf16_step(rounded, abs_sum):
+    """One bf16 step of each output of a sum rounded to bf16: 2^-7 of its
+    magnitude, and where the terms cancel, of 2^-8 of the sum of their
+    magnitudes (`abs_sum`): a float32 sum errs by far less than that, a
+    sum of bf16-rounded partials by about as much."""
+    return 2.0 ** -7 * torch.maximum(rounded.abs(), 2.0 ** -8 * abs_sum)
+
+
+def split_conv_stage(conv, tag):
+    """The split graph's changed stage: `parts_conv` on bf16 parts of the
+    neck's widths (the P3 fusion's [p4_up | feat1_rgb | feat1_nir] at b8,
+    80², N(0, 1)) against the exact conv of the bf16 operands (float64)
+    rounded once to bf16: within one bf16 step everywhere and equal in at
+    least 99% of the outputs.  cuDNN's bf16 conv of the concat is measured
+    beside it against the same reference, reported."""
+    from dcfa_yolo_tpu_torch.ops.conv import parts_conv
+
+    g = torch.Generator(device=conv.weight.device).manual_seed(SEED + 150)
+    half = (conv.in_channels - conv.in_channels // 2) // 2
+    widths = (conv.in_channels // 2, half, conv.in_channels - conv.in_channels // 2 - half)
+    parts = [torch.randn((8, c, 80, 80), generator=g, device=conv.weight.device)
+             .to(torch.bfloat16) for c in widths]
+    w = conv.weight.to(torch.bfloat16)
+    x = torch.cat(parts, 1)
+    rounded = torch.nn.functional.conv2d(x.double(), w.double()).to(torch.bfloat16).double()
+    step = bf16_step(rounded, torch.nn.functional.conv2d(x.double().abs(), w.double().abs()))
+
+    def stats(y):
+        d = (y.double() - rounded).abs()
+        return float((d == 0).double().mean()), float((d / step).max())
+
+    with torch.inference_mode():
+        split = stats(parts_conv(conv, parts))
+        concat = stats(conv(x))
+    print(f"{tag}: parts conv at the P3 fusion ({'+'.join(map(str, widths))} -> "
+          f"{conv.out_channels} channels, b8 80²) against the exact conv rounded once: "
+          f"{split[0]:.6f} equal, at most {split[1]:.3g} bf16 steps (limits 0.99, 1); "
+          f"cuDNN's bf16 concat conv: {concat[0]:.6f} equal, at most {concat[1]:.3g} steps "
+          f"(reported)")
+    check(split[0] >= 0.99 and split[1] <= 1.0,
+          f"{tag}: the parts conv does not round once: {split}")
+
+
+def phase_scales(dev):
+    """[scales]: phi='n' bf16, seeded weights, b1 seeded 480×640 uint8
+    pairs, conf 0.001, at input shapes 320², 1280² and 320×416: the anchor
+    count Σ (h/s)·(w/s) of the per-anchor predictions; kernel A in the
+    pipeline against A's plain version per anchor at [serve]'s limits
+    (scores 0.005, boxes 0.5 px, classes equal); through the captured graph
+    two inputs, each replay `torch.equal` to its eager call, kernels A and
+    B launched 2 and 1 times a replay; replay ms a call."""
+    from dcfa_yolo_tpu_torch.infer.pipeline import (detect_batch_graph, predict,
+                                                    release_graphs)
+    from dcfa_yolo_tpu_torch.infer.predictor import YOLOPredictor
+
+    total = {"stem_eval": 0, "nms_suppress": 0}
+    nkw = dict(conf_thres=0.001, iou_thres=0.5, max_det=300, pre_nms_topk=1024,
+               nms="kernel", stem="kernel")
+    for in_hw in ((320, 320), (1280, 1280), (320, 416)):
+        model = YOLOPredictor(["object"], input_shape=in_hw, phi="n",
+                              compute_dtype="bfloat16", seed=SEED, device=dev).model
+        r, n = serve_inputs(1, SEED + 130)
+        anchors = sum((in_hw[0] // s) * (in_hw[1] // s) for s in (8, 16, 32))
+        kern = predict(model, r, n, stem="kernel")
+        with plain_stem_kernel():
+            plain = predict(model, r, n, stem="kernel")
+        eq, ds, db = per_anchor_gap(kern, plain, in_hw)
+        check(kern[0].shape == (1, anchors, 4), f"[scales] {in_hw}: {tuple(kern[0].shape)} "
+              f"predictions, expected {anchors} anchors")
+        inputs = [(*serve_inputs(1, SEED + 131 + i), np.array([[480.0, 640.0]], np.float32))
+                  for i in range(2)]
+        (na, nb), eager = graph_holds(model, inputs, nkw, f"[scales] {in_hw}")
+        ms = host_ms(lambda: detect_batch_graph(model, *inputs[0], **nkw))
+        print(f"[scales] {in_hw[0]}x{in_hw[1]}: {anchors} anchors; kernel A vs its plain "
+              f"version per anchor: classes equal {eq}, max |Δscore| {ds:.4g} (limit 0.005), "
+              f"max |Δbox| {db:.4g} px (limit 0.5); 2 replays torch.equal to eager, "
+              f"launches {na} stem + {nb} NMS; detections {int(eager[0].valid.sum())}; "
+              f"replay {ms:.3f} ms a call | {CARD}")
+        check(eq and ds <= 0.005 and db <= 0.5,
+              f"[scales] {in_hw}: kernel A disagrees with its plain version")
+        check((na, nb) == (4, 2), f"[scales] {in_hw}: two replays counted {na} stem and "
+              f"{nb} NMS launches, expected 4 and 2")
+        check(bool(eager[0].valid.any()), f"[scales] {in_hw}: no detections")
+        total["stem_eval"] += na
+        total["nms_suppress"] += nb
+        release_graphs(model)
+        del model
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_phis(dev):
+    """[phis]: phi s, m, l and x at 640², bf16, seeded weights, b1 seeded
+    480×640 pairs, conf 0.001, the 'auto' backends: the stem resolves to the
+    plain graph (kernel A is specialised to phi='n''s 16 stem channels), so
+    kernel B is the only kernel, launched once a replay; two replays each
+    `torch.equal` to the eager call; replay ms a call and peak device
+    memory for each phi, with phi='n' (kernels A and B) first as the
+    yardstick."""
+    from dcfa_yolo_tpu_torch.infer.pipeline import (detect_batch_graph, release_graphs,
+                                                    resolve_stem)
+    from dcfa_yolo_tpu_torch.infer.predictor import YOLOPredictor
+    from dcfa_yolo_tpu_torch.models.yolo import count_params
+
+    total = {"stem_eval": 0, "nms_suppress": 0}
+    nkw = dict(conf_thres=0.001, iou_thres=0.5, max_det=300, pre_nms_topk=1024)
+    inputs = [(*serve_inputs(1, SEED + 140 + i), np.array([[480.0, 640.0]], np.float32))
+              for i in range(2)]
+    for phi in "nsmlx":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**20
+        model = YOLOPredictor(["object"], input_shape=(640, 640), phi=phi,
+                              compute_dtype="bfloat16", seed=SEED, device=dev).model
+        stem = resolve_stem("auto", model.cfg, dev)
+        want = ("kernel", 4) if phi == "n" else ("plain", 0)
+        check(stem == want[0], f"[phis] phi={phi}: 'auto' resolved the stem to {stem}")
+        (na, nb), eager = graph_holds(model, inputs, nkw, f"[phis] {phi}")
+        ms = host_ms(lambda: detect_batch_graph(model, *inputs[0], **nkw))
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        print(f"[phis] phi={phi}: {count_params(model):,} parameters, stem 'auto' -> "
+              f"{stem}; 2 replays torch.equal to eager, launches {na} stem + {nb} NMS; "
+              f"detections {int(eager[0].valid.sum())}; replay {ms:.3f} ms a call; peak "
+              f"device memory {peak:.1f} MiB, {peak - held:.1f} over the {held:.1f} "
+              f"held before the model was built | {CARD}")
+        check((na, nb) == (want[1], 2), f"[phis] phi={phi}: two replays counted {na} "
+              f"stem and {nb} NMS launches, expected {want[1]} and 2")
+        total["stem_eval"] += na
+        total["nms_suppress"] += nb
+        release_graphs(model)
+        del model
+    torch.cuda.empty_cache()
+    return total
+
+
 def phase_bench():
     """The port's bench at BENCH_BATCH=32, BENCH_ITERS=5, with the stem and
     NMS kernels' launch counts read around it; its JSON on a line of its
@@ -1466,8 +1800,13 @@ def main() -> int:
             phase_cli(dev, data_dir)
             for name, n in phase_interop(dev, pairs, trained).items():
                 launches[name] += n
+            for name, n in phase_variants(dev, pairs).items():
+                launches[name] += n
         finally:
             shutil.rmtree(data_dir, ignore_errors=True)
+        for phase in (phase_scales, phase_phis):
+            for name, n in phase(dev).items():
+                launches[name] += n
         phase_bench()
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

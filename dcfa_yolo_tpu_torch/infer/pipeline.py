@@ -99,18 +99,36 @@ def _stem_canvas(img: torch.Tensor, in_hw: Tuple[int, int],
     return letterbox_batch_cf(img, in_hw)
 
 
+def _stem_params(model: DCFAYolo, mod: int):
+    """Modality `mod`'s (0 rgb, 1 nir) stem conv kernel and BN leaves
+    (weight, bias, running mean, running var, eps).  The paired graph's stem
+    is block-diagonal (`models/pairing.py`), blocked in and out: the
+    modality's kernel is its output rows c·mod:c·(mod+1) and input columns
+    3·mod:3·(mod+1), its BN leaves those rows (JAX `pipeline.py:103-120`)."""
+    if not model.pair_backbones:
+        stem = (model.backbone_rgb, model.backbone_nir)[mod].stem
+        bn = stem.bn
+        return (stem.conv.weight, bn.weight, bn.bias, bn.running_mean,
+                bn.running_var, bn.eps)
+    stem = model.backbone_pair.stem
+    bn = stem.bn
+    c = stem.conv.weight.shape[0] // 2
+    co = slice(c * mod, c * (mod + 1))
+    return (stem.conv.weight[co, 3 * mod:3 * (mod + 1)], bn.weight[co],
+            bn.bias[co], bn.running_mean[co], bn.running_var[co], bn.eps)
+
+
 def _kernel_stem_outs(model: DCFAYolo, rgb: torch.Tensor, nir: torch.Tensor,
                       letterbox: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's canvas per modality (`_stem_canvas`) through the fused
-    stem (`_pallas_stem_outs`, `pipeline.py:78-173`)."""
+    stem (`_pallas_stem_outs`, `pipeline.py:78-173`), in the paired graph
+    too: the model concatenates the two maps into its paired stem map."""
     in_hw = tuple(model.cfg.input_shape)
     outs = []
-    for img, backbone in ((rgb, model.backbone_rgb), (nir, model.backbone_nir)):
+    for mod, img in enumerate((rgb, nir)):
         x_cf = _stem_canvas(img, in_hw, letterbox)
-        stem = backbone.stem
-        w, bias = fold_stem_params(stem.conv.weight, stem.bn.weight,
-                                   stem.bn.bias, stem.bn.running_mean,
-                                   stem.bn.running_var, eps=stem.bn.eps)
+        *params, eps = _stem_params(model, mod)
+        w, bias = fold_stem_params(*params, eps=eps)
         outs.append(stem_eval(x_cf.to(torch.bfloat16).contiguous(), w, bias))
     return outs[0], outs[1]
 

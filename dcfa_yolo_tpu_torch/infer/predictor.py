@@ -1,9 +1,10 @@
 """User-facing detection facade (`dcfa_yolo_tpu/infer/predictor.py:42-346`,
 the reference's `YOLO` class, `yolo_mul.py:16-257`): construction from a
-checkpoint path or weights (train or deploy graph, folded shuffles,
-pre-cast kernels), `detect`, `detect_batch`, `detect_image` and
-`draw_detections`, `get_fps`, `detect_heatmap`, the NMS cap counters and
-the mAP protocol's detection files (`get_map_txt`, `get_map_txt_batch`).
+checkpoint path or weights (train or deploy graph, folded shuffles, paired
+backbones, split neck concats, pre-cast kernels), `detect`,
+`detect_batch`, `detect_image` and `draw_detections`, `get_fps`,
+`detect_heatmap`, the NMS cap counters and the mAP protocol's detection
+files (`get_map_txt`, `get_map_txt_batch`).
 
 On the card every call runs the captured pipeline
 (`infer/pipeline.py::detect_batch_graph`, one CUDA graph a static key);
@@ -30,10 +31,6 @@ from dcfa_yolo_tpu_torch.models.convert import from_jax_variables
 from dcfa_yolo_tpu_torch.models.reparam import (cast_model_conv_kernels,
                                                 serving_state_dict)
 from dcfa_yolo_tpu_torch.models.yolo import _DTYPES, DCFAYolo, init_model
-
-_NOT_PORTED = ("{what} is not ported yet (ROADMAP.md, queue 1, item 11: "
-               "pair_backbones, split_neck_concats, multi-scale, phi s-x)")
-
 
 def get_classes(classes_path: str) -> Tuple[List[str], int]:
     """Read class names, one per line (`utils/utils.py:42-46`)."""
@@ -65,9 +62,16 @@ class YOLOPredictor:
     `variables` (a flax `{"params", "batch_stats"}` tree of arrays, carried
     by `models/convert.py`, that must match the chosen graph: the output of
     the JAX `deploy_variables` for deploy=True, of `fold_shuffle_variables`
-    for fold_shuffle=True), from `state_dict` (the port's own, for the
+    for fold_shuffle=True, of `pair_backbone_variables` after it for
+    pair_backbones=True), from `state_dict` (the port's own, for the
     chosen graph: the training CLI passes its folded EMA weights) or,
-    without any, from `init_model(cfg, seed, deploy=..., fold_shuffle=...)`.
+    without any, from `init_model(cfg, seed, deploy=..., fold_shuffle=...,
+    pair_backbones=..., split_neck_concats=...)`.
+    pair_backbones serves both backbones as one doubled-channel stream
+    (`models/pairing.py`) and needs fold_shuffle=True;
+    split_neck_concats computes the neck's concats into 1x1 convs as sums
+    of part convs; both take the weights of the graph without them
+    (`models/yolo.py::DCFAYolo`).
     cast_weights pre-casts the conv kernels to the compute dtype
     (`models/reparam.py::cast_model_conv_kernels`), only when that is not
     float32, as in the JAX package.  letterbox_image=False stretches each
@@ -86,10 +90,8 @@ class YOLOPredictor:
                  cast_weights: bool = False, model_path: Optional[str] = None,
                  classes_path: Optional[str] = None, letterbox_image: bool = True,
                  pair_backbones: bool = False, split_neck_concats: bool = False):
-        if pair_backbones:
-            raise NotImplementedError(_NOT_PORTED.format(what="pair_backbones"))
-        if split_neck_concats:
-            raise NotImplementedError(_NOT_PORTED.format(what="split_neck_concats"))
+        if pair_backbones and not fold_shuffle:
+            raise ValueError("pair_backbones requires fold_shuffle=True")
         if class_names is None:
             if classes_path is None:
                 raise ValueError("provide classes_path or class_names")
@@ -114,14 +116,16 @@ class YOLOPredictor:
                 return init_model(self.cfg, seed, "cpu").state_dict()
 
             state_dict = serving_state_dict(load_variables(model_path, template),
-                                            deploy, fold_shuffle)
+                                            deploy, fold_shuffle, pair_backbones)
+        graph = dict(deploy=deploy, fold_shuffle=fold_shuffle,
+                     pair_backbones=pair_backbones,
+                     split_neck_concats=split_neck_concats)
         if variables is not None or state_dict is not None:
-            model = DCFAYolo(self.cfg, deploy=deploy, fold_shuffle=fold_shuffle)
+            model = DCFAYolo(self.cfg, **graph)
             model.load_state_dict(from_jax_variables(variables) if state_dict is None
                                   else state_dict, strict=True)
         else:
-            model = init_model(self.cfg, seed, "cpu", deploy=deploy,
-                               fold_shuffle=fold_shuffle)
+            model = init_model(self.cfg, seed, "cpu", **graph)
         if cast_weights and compute_dtype != "float32":
             cast_model_conv_kernels(model, _DTYPES[compute_dtype])
         self.model = model.to(self.device).eval()

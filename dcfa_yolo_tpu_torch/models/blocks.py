@@ -162,16 +162,22 @@ class SPPFCBAM(nn.Module):
 class ConcatBiFPN(nn.Module):
     """Weighted concat of three maps: learnable scalar weights normalized by
     sum+1e-4, cast to the activation dtype, inputs scaled then concatenated
-    (`nets/yolo_mul.py:36-51`)."""
+    (`nets/yolo_mul.py:36-51`).
 
-    def __init__(self):
+    return_parts: the scaled inputs come back as a tuple, for a consumer
+    whose 1x1 conv takes the parts (`ops/conv.py::parts_conv`; JAX
+    `blocks.py:262-283`).  Same parameter, same products."""
+
+    def __init__(self, return_parts: bool = False):
         super().__init__()
+        self.return_parts = return_parts
         self.w = nn.Parameter(torch.ones(3))
 
-    def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    def forward(self, xs: Sequence[torch.Tensor]):
         w = self.w / (self.w.sum() + 1e-4)
         w = w.to(xs[0].dtype)
-        return torch.cat([w[0] * xs[0], w[1] * xs[1], w[2] * xs[2]], dim=1)
+        parts = (w[0] * xs[0], w[1] * xs[1], w[2] * xs[2])
+        return parts if self.return_parts else torch.cat(parts, dim=1)
 
 
 class RepGhostModule(nn.Module):
@@ -223,13 +229,19 @@ class RepGhostBottleneck(nn.Module):
 class C2fRepGhost(nn.Module):
     """CSP block over RepGhost bottlenecks (`nets/repghost.py:308-320`).  Its
     1x1 convs use the default-BN flavour (eps 1e-5, momentum 0.1,
-    `nets/repghost.py:291-305`)."""
+    `nets/repghost.py:291-305`).
+
+    split_concats: cv2 takes its (2 + n)·c input as parts in place of their
+    concat (JAX `blocks.py:436-466`); cv1 takes parts whenever the caller
+    passes a tuple.  The parameters are the same."""
 
     def __init__(self, c_in: int, c_out: int, n: int = 1,
-                 expansion: float = 0.5, deploy: bool = False):
+                 expansion: float = 0.5, deploy: bool = False,
+                 split_concats: bool = False):
         super().__init__()
         self.c = int(c_out * expansion)
         self.n = n
+        self.split_concats = split_concats
         self.cv1 = ConvBnAct(c_in, 2 * self.c, 1, 1, bn_eps=1e-5,
                              bn_momentum=0.1)
         for i in range(n):
@@ -237,11 +249,11 @@ class C2fRepGhost(nn.Module):
         self.cv2 = ConvBnAct((2 + n) * self.c, c_out, 1, 1, bn_eps=1e-5,
                              bn_momentum=0.1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x) -> torch.Tensor:
         y = list(self.cv1(x).split(self.c, dim=1))
         for i in range(self.n):
             y.append(getattr(self, f"m{i}")(y[-1]))
-        return self.cv2(torch.cat(y, dim=1))
+        return self.cv2(tuple(y) if self.split_concats else torch.cat(y, dim=1))
 
 
 def dfl_decode(box_logits: torch.Tensor, reg_max: int = 16) -> torch.Tensor:

@@ -6,7 +6,8 @@ Each function maps a state_dict (name → tensor) to a new one and leaves its
 input unchanged.  Load the result into the graph it was made for:
 `DCFAYolo(cfg, deploy=True)` after `deploy_state_dict`,
 `DCFAYolo(cfg, fold_shuffle=True)` after `fold_shuffle_state_dict`
-(`models/yolo.py::init_model` does both).
+(`models/yolo.py::init_model` does both, and the backbone pairing of
+`models/pairing.py` after them).
 
 RepGhost math (per module, depthwise kernels OIHW (C, 1, 3, 3), float32):
     fused_kernel = K_dw·g_c/σ_c + pad_1x1→3x3(I·g_f/σ_f)
@@ -21,6 +22,8 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+
+from dcfa_yolo_tpu_torch.models.pairing import pair_backbone_state_dict
 
 StateDict = Dict[str, torch.Tensor]
 Spec = List[Tuple[str, int, np.ndarray]]
@@ -148,14 +151,21 @@ def unfold_shuffle_state_dict(sd: StateDict) -> StateDict:
 
 
 def serving_state_dict(sd: StateDict, deploy: bool = False,
-                       fold_shuffle: bool = False) -> StateDict:
+                       fold_shuffle: bool = False,
+                       pair_backbones: bool = False) -> StateDict:
     """A train-graph state_dict for `DCFAYolo(cfg, deploy=deploy,
-    fold_shuffle=fold_shuffle)`: RepGhost fused, then the shuffles folded
-    (JAX `infer/predictor.py:108-140`)."""
+    fold_shuffle=fold_shuffle, pair_backbones=pair_backbones)`: RepGhost
+    fused, then the shuffles folded, then the backbones paired
+    (`models/pairing.py`; JAX `infer/predictor.py:108-130`).  Cast the conv
+    kernels (`cast_conv_kernels`) after this."""
+    if pair_backbones and not fold_shuffle:
+        raise ValueError("pair_backbones requires fold_shuffle=True")
     if deploy:
         sd = deploy_state_dict(sd)
     if fold_shuffle:
         sd = fold_shuffle_state_dict(sd)
+    if pair_backbones:
+        sd = pair_backbone_state_dict(sd)
     return sd
 
 

@@ -1,5 +1,5 @@
-"""DCFA-YOLO model assembly of the port (`dcfa_yolo_tpu/models/yolo.py:72-245`,
-the non-paired branch; reference `nets/yolo_mul.py:328-462`).
+"""DCFA-YOLO model assembly of the port (`dcfa_yolo_tpu/models/yolo.py:72-245`;
+reference `nets/yolo_mul.py:328-462`).
 
 Public layouts are the JAX package's: NHWC images in, anchors-first
 `(B, A, 4)` / `(B, A, nc)` outputs, NHWC `feats`.  Inside, the NHWC inputs
@@ -20,6 +20,8 @@ from dcfa_yolo_tpu_torch.device import resolve_device
 from dcfa_yolo_tpu_torch.models.backbone import Backbone
 from dcfa_yolo_tpu_torch.models.blocks import (CBAM, C2fRepGhost, ConcatBiFPN,
                                                dfl_decode)
+from dcfa_yolo_tpu_torch.models.pairing import (PairedBackbone, PairedCBAM,
+                                                PairedConcatBiFPN)
 from dcfa_yolo_tpu_torch.ops.boxes import make_anchors_np
 from dcfa_yolo_tpu_torch.ops.consts import device_const
 from dcfa_yolo_tpu_torch.ops.conv import Conv, ConvBnAct
@@ -49,27 +51,47 @@ class DCFAYolo(nn.Module):
     switch every BatchNorm between batch and running statistics;
     `train_feats` is the train forward.
 
-    deploy / fold_shuffle select the serving graphs of JAX `yolo.py:47-53`:
-    RepGhost modules as one biased depthwise conv, and ShuffleNet units
-    without their final shuffle.  Their weights come from the train-graph
-    state_dict through `models/reparam.py` (`init_model` applies it)."""
+    deploy / fold_shuffle / pair_backbones / split_neck_concats select the
+    serving graphs of JAX `yolo.py:47-69`: RepGhost modules as one biased
+    depthwise conv; ShuffleNet units without their final shuffle; both
+    backbones as one doubled-channel stream with block-diagonal kernels
+    (`models/pairing.py`; eval only, on folded weights); the neck's concats
+    into 1x1 convs (the three BiFPN fusions, the down-path concat and each
+    C2fRepGhost's own) as sums of part convs (`ops/conv.py::parts_conv`),
+    with the same parameters.  The paired graph keeps its neck's concats,
+    as in the JAX package.  Their weights come from the train-graph
+    state_dict through `models/reparam.py::serving_state_dict`
+    (`init_model` applies it)."""
 
     def __init__(self, cfg: ModelConfig, deploy: bool = False,
-                 fold_shuffle: bool = False):
+                 fold_shuffle: bool = False, pair_backbones: bool = False,
+                 split_neck_concats: bool = False):
         super().__init__()
+        if pair_backbones and not fold_shuffle:
+            raise ValueError("pair_backbones requires fold_shuffle=True "
+                             "(pair_backbone_state_dict folds on top of "
+                             "fold_shuffle_state_dict)")
         self.cfg = cfg
         self.deploy = deploy
         self.fold_shuffle = fold_shuffle
+        self.pair_backbones = pair_backbones
+        self.split_neck_concats = split = split_neck_concats and not pair_backbones
         bc, deep, depth = cfg.base_channels, cfg.deep_channels, cfg.base_depth
-        self.backbone_rgb = Backbone(bc, deep, cfg.train_stem_backend, fold_shuffle)
-        self.backbone_nir = Backbone(bc, deep, cfg.train_stem_backend, fold_shuffle)
-        for mod in ("rgb", "nir"):
-            for i, c in enumerate((bc * 4, bc * 8, deep), start=1):
-                self.add_module(f"cbam_{mod}_feat{i}", CBAM(c))
-        # one ConcatBiFPN shared by all three fusion points, like the
-        # reference's single `self.bi_fpn` (`nets/yolo_mul.py:344`)
-        self.bi_fpn = ConcatBiFPN()
-        c2f = dict(n=depth, deploy=deploy)
+        if pair_backbones:
+            self.backbone_pair = PairedBackbone(bc, deep)
+            for i, (c, nb) in enumerate(((bc * 4, 4), (bc * 8, 4), (deep, 2)), start=1):
+                self.add_module(f"cbam_pair_feat{i}", PairedCBAM(2 * c, n_blocks=nb))
+            # one BiFPN weight shared by all three fusion points, like the
+            # reference's single `self.bi_fpn` (`nets/yolo_mul.py:344`)
+            self.bi_fpn = PairedConcatBiFPN()
+        else:
+            self.backbone_rgb = Backbone(bc, deep, cfg.train_stem_backend, fold_shuffle)
+            self.backbone_nir = Backbone(bc, deep, cfg.train_stem_backend, fold_shuffle)
+            for mod in ("rgb", "nir"):
+                for i, c in enumerate((bc * 4, bc * 8, deep), start=1):
+                    self.add_module(f"cbam_{mod}_feat{i}", CBAM(c))
+            self.bi_fpn = ConcatBiFPN(return_parts=split)
+        c2f = dict(n=depth, deploy=deploy, split_concats=split)
         self.conv3_for_upsample1 = C2fRepGhost(deep + 2 * bc * 8, bc * 8, **c2f)
         self.conv3_for_upsample2 = C2fRepGhost(bc * 8 + 2 * bc * 4, bc * 4, **c2f)
         self.down_sample1 = ConvBnAct(bc * 4, bc * 4, 3, 2)
@@ -103,23 +125,28 @@ class DCFAYolo(nn.Module):
             x_rgb, x_nir = _nchw(rgb.to(dtype)), _nchw(nir.to(dtype))
             input_hw = (rgb.shape[1], rgb.shape[2])
 
-        f1r, f2r, f3r = self.backbone_rgb(x_rgb, s_rgb)
-        f1n, f2n, f3n = self.backbone_nir(x_nir, s_nir)
-        # per-level, per-modality CBAM before fusion (`nets/yolo_mul.py:346-353`)
-        f1r, f1n = self.cbam_rgb_feat1(f1r), self.cbam_nir_feat1(f1n)
-        f2r, f2n = self.cbam_rgb_feat2(f2r), self.cbam_nir_feat2(f2n)
-        f3r, f3n = self.cbam_rgb_feat3(f3r), self.cbam_nir_feat3(f3n)
-        feat3 = f3r + f3n  # P5 fusion is an element-wise add (`:421`)
+        if self.pair_backbones:
+            if self.training:
+                raise ValueError("pair_backbones is a serving-only graph")
+            feats, feat3 = self._paired_feats(x_rgb, x_nir, s_rgb, s_nir)
+        else:
+            f1r, f2r, f3r = self.backbone_rgb(x_rgb, s_rgb)
+            f1n, f2n, f3n = self.backbone_nir(x_nir, s_nir)
+            # per-level, per-modality CBAM before fusion (`nets/yolo_mul.py:346-353`)
+            feats = ((self.cbam_rgb_feat1(f1r), self.cbam_nir_feat1(f1n)),
+                     (self.cbam_rgb_feat2(f2r), self.cbam_nir_feat2(f2n)),
+                     (self.cbam_rgb_feat3(f3r), self.cbam_nir_feat3(f3n)))
+            feat3 = feats[2][0] + feats[2][1]  # P5 fusion is an element-wise add (`:421`)
 
         # PAN neck; upsample sizes come from the feature maps
-        p5_up = resize_bilinear_align_corners(feat3, f2r.shape[2:4])
-        p4 = self.conv3_for_upsample1(self.bi_fpn((p5_up, f2r, f2n)))
-        p4_up = resize_bilinear_align_corners(p4, f1r.shape[2:4])
-        p3 = self.conv3_for_upsample2(self.bi_fpn((p4_up, f1r, f1n)))
-        p4 = self.conv3_for_downsample1(
-            torch.cat([self.down_sample1(p3), p4], dim=1))
-        p5 = self.conv3_for_downsample2(
-            self.bi_fpn((self.down_sample2(p4), f3r, f3n)))
+        p5_up = resize_bilinear_align_corners(feat3, feats[1][0].shape[2:4])
+        p4 = self.conv3_for_upsample1(self._fuse(p5_up, feats[1]))
+        p4_up = resize_bilinear_align_corners(p4, feats[0][0].shape[2:4])
+        p3 = self.conv3_for_upsample2(self._fuse(p4_up, feats[0]))
+        down = (self.down_sample1(p3), p4)
+        p4 = self.conv3_for_downsample1(down if self.split_neck_concats
+                                        else torch.cat(down, dim=1))
+        p5 = self.conv3_for_downsample2(self._fuse(self.down_sample2(p4), feats[2]))
 
         # decoupled head (`nets/yolo_mul.py:387-391,452-453`)
         boxes, clses = [], []
@@ -129,6 +156,27 @@ class DCFAYolo(nn.Module):
             cls = getattr(self, f"cv3_{i}_0")(p)
             clses.append(getattr(self, f"cv3_{i}_2")(getattr(self, f"cv3_{i}_1")(cls)))
         return boxes, clses, input_hw
+
+    def _fuse(self, up: torch.Tensor, feat) -> torch.Tensor:
+        """One BiFPN fusion of `up` with a level's features: its (rgb, nir)
+        maps, or in the paired graph its paired map and block count."""
+        if self.pair_backbones:
+            return self.bi_fpn(up, *feat)
+        return self.bi_fpn((up, *feat))
+
+    def _paired_feats(self, x_rgb, x_nir, s_rgb, s_nir):
+        """The paired stream (JAX `yolo.py:96-114`): [rgb | nir] through
+        the paired backbone (or the two stem maps, concatenated) and the
+        paired CBAMs → ((feat, n_blocks) per level, the P5 sum).  feat3 is
+        modality-blocked, so the rgb + nir add is a sum over the modality
+        axis."""
+        stem = None if s_rgb is None else torch.cat([s_rgb, s_nir], dim=1)
+        x = None if x_rgb is None else torch.cat([x_rgb, x_nir], dim=1)
+        f1p, f2p, f3p = self.backbone_pair(x, stem)
+        f1p, f2p = self.cbam_pair_feat1(f1p), self.cbam_pair_feat2(f2p)
+        f3p = self.cbam_pair_feat3(f3p)
+        b, c, h, w = f3p.shape
+        return ((f1p, 4), (f2p, 4), (f3p, 2)), f3p.view(b, 2, c // 2, h, w).sum(dim=1)
 
     def train_stem_route(self) -> str:
         """The train-mode stem graph this model runs where its parameters
@@ -203,7 +251,8 @@ def _init_value(name: str, shape, seed: int) -> np.ndarray:
 
 def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
                train: bool = False, deploy: bool = False,
-               fold_shuffle: bool = False) -> DCFAYolo:
+               fold_shuffle: bool = False, pair_backbones: bool = False,
+               split_neck_concats: bool = False) -> DCFAYolo:
     """A DCFAYolo on `device` with deterministic weights made from `seed`
     with numpy (no JAX needed).
 
@@ -215,8 +264,9 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
     JAX package's for the same seed.
 
     The weights are always made for the train graph; deploy / fold_shuffle
-    then transform them (`models/reparam.py`) for the serving graph, as JAX
-    `infer/predictor.py:108-140` does."""
+    / pair_backbones then transform them (`models/reparam.py`) for the
+    serving graph, as JAX `infer/predictor.py:108-140` does;
+    split_neck_concats takes them as they are."""
     dev = resolve_device(device)
     model = DCFAYolo(cfg)
     if train:
@@ -227,11 +277,14 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
         model.load_state_dict(
             {k: torch.from_numpy(_init_value(k, tuple(v.shape), seed))
              for k, v in model.state_dict().items()}, strict=True)
-    if deploy or fold_shuffle:
+    if deploy or fold_shuffle or pair_backbones or split_neck_concats:
         from dcfa_yolo_tpu_torch.models.reparam import serving_state_dict
 
-        sd = serving_state_dict(model.state_dict(), deploy, fold_shuffle)
-        model = DCFAYolo(cfg, deploy=deploy, fold_shuffle=fold_shuffle)
+        sd = serving_state_dict(model.state_dict(), deploy, fold_shuffle,
+                                pair_backbones)
+        model = DCFAYolo(cfg, deploy=deploy, fold_shuffle=fold_shuffle,
+                         pair_backbones=pair_backbones,
+                         split_neck_concats=split_neck_concats)
         model.load_state_dict(sd, strict=True)
     model = model.to(dev)
     return model.train() if train else model.eval()

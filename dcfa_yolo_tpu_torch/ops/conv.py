@@ -12,9 +12,10 @@ when it runs, as flax's `nn.Conv(dtype=...)` does.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from dcfa_yolo_tpu_torch.ops.norm import BatchNorm
@@ -49,11 +50,41 @@ class Conv(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), b)
 
 
+def parts_conv(conv: Conv, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """conv(concat(parts, dim=1)) as Σ conv_i(part_i), the kernel's
+    input-channel columns sliced per part (JAX `ops/conv.py:134-164`), so
+    that the concat buffer is never written.  Only a 1x1 ungrouped conv
+    splits this way.
+
+    The JAX package takes each partial in float32, sums in float32 and
+    rounds once to the activation dtype.  Here each part conv runs on
+    float32 copies of the part and of its kernel slice, both already in the
+    activation dtype: a bf16 value is exact in float32 (and in TF32), so the
+    products are the bf16 ones, and only the float32 sum is rounded, once.
+    The deviation from the concat conv is the K-split summation order."""
+    if conv.kernel_size != (1, 1) or conv.groups != 1:
+        raise ValueError("parts input needs a 1x1 ungrouped conv")
+    total = sum(p.shape[1] for p in parts)
+    if total != conv.in_channels:
+        raise ValueError(f"parts channels {total} != conv in-channels "
+                         f"{conv.in_channels}")
+    dtype = parts[0].dtype
+    y, o = None, 0
+    for p in parts:
+        ci = p.shape[1]
+        w = conv.weight[:, o:o + ci].to(dtype).float()
+        yi = F.conv2d(p.float(), w, stride=conv.stride)
+        y = yi if y is None else y + yi
+        o += ci
+    return y.to(dtype)
+
+
 class ConvBnAct(nn.Module):
     """The reference's `Conv` block: bias-free conv + BN + SiLU.
 
     `bn_eps`/`bn_momentum` default to the `nets/yolo_mul.py:197` flavour
-    (1e-3, 0.03); C2fRepGhost passes the torch defaults (1e-5, 0.1).
+    (1e-3, 0.03); C2fRepGhost passes the torch defaults (1e-5, 0.1).  A
+    tuple or list input is the parts of a channel concat (`parts_conv`).
     """
 
     def __init__(self, c_in: int, c_out: int, k: int = 1, s: int = 1,
@@ -62,5 +93,6 @@ class ConvBnAct(nn.Module):
         self.conv = Conv(c_in, c_out, k, s)
         self.bn = BatchNorm(c_out, eps=bn_eps, momentum=bn_momentum)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return silu(self.bn(self.conv(x)))
+    def forward(self, x: Union[torch.Tensor, Sequence[torch.Tensor]]) -> torch.Tensor:
+        y = parts_conv(self.conv, x) if isinstance(x, (tuple, list)) else self.conv(x)
+        return silu(self.bn(y))

@@ -7,8 +7,8 @@ The root flags, plus `--device` (the card unless `--device cpu`).
 `--stem-backend` and `--nms-backend` take the JAX names and the port's:
 `xla` is the plain graph, `pallas*` the kernel (A for the stem, B for
 NMS).  On the card every call runs the captured pipeline
-(`infer/pipeline.py::detect_batch_graph`).  `--pair-backbones` is not
-ported yet and raises.
+(`infer/pipeline.py::detect_batch_graph`).  `--pair-backbones` serves the
+paired graph (`models/pairing.py`) and implies `--fold-shuffle`.
 """
 
 from __future__ import annotations
@@ -45,7 +45,9 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--fold-shuffle", action="store_true",
                    help="serve with the channel shuffles folded into the weights")
     p.add_argument("--pair-backbones", action="store_true",
-                   help="not ported yet (ROADMAP.md, queue 1, item 11)")
+                   help="serve both backbones as one doubled-channel stream "
+                        "with block-diagonal weights (models/pairing.py; "
+                        "implies --fold-shuffle)")
     p.add_argument("--device", default="cuda",
                    help="torch device; the card unless 'cpu' is asked for")
 
@@ -58,7 +60,8 @@ def make_predictor(args, **kw):
         model_path=args.model_path or None, classes_path=args.classes_path,
         input_shape=tuple(args.input_shape), phi=args.phi,
         compute_dtype=args.compute_dtype, stem=args.stem_backend,
-        fold_shuffle=args.fold_shuffle, pair_backbones=args.pair_backbones,
+        fold_shuffle=args.fold_shuffle or args.pair_backbones,
+        pair_backbones=args.pair_backbones,
         device=args.device, **kw)
 
 

@@ -2,7 +2,7 @@
 `.get_map`) in-process on the CPU at 64² on a synthetic dataset: every
 predict mode, get_map's modes 0-4 (ground truth and VOC mAP held against
 the root get_map.py's), the caps' auto-raise and `--no-auto-raise`, the
-JAX backend names and the flags that are not ported yet."""
+JAX backend names and `--pair-backbones`."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import shutil
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -117,12 +118,47 @@ def test_jax_backend_names_accepted(data, tmp_path, monkeypatch, nms, stem):
     assert seen["nms"] == ("plain" if nms == "xla" else "kernel")
 
 
-def test_pair_backbones_raises_naming_the_item(data):
-    for cli, argv in ((predict, ["--mode", "predict"] + _pair(data)),
-                      (get_map, ["--map-mode", "1", "--vocdevkit-path",
-                                 str(data / "VOCdevkit")])):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            cli.run(argv + ["--pair-backbones"] + _model_args(data))
+def test_pair_backbones_raises_naming_the_item(data, tmp_path, monkeypatch):
+    """--pair-backbones serves the paired graph (it implies --fold-shuffle):
+    predict draws, and get_map writes, the detections of the same run with
+    --fold-shuffle, float32: the same counts and classes, boxes within 1 px,
+    scores within 1e-3 (tests/test_pair_backbones.py:198-202); in the
+    detection files scores as printed, truncated to 4 decimals (1.1e-3) and
+    corners truncated by int() (1 px).  (The name is kept from when the
+    flag raised.)"""
+    from dcfa_yolo_tpu_torch.infer import predictor as predictor_mod
+
+    drawn = []
+    orig = predictor_mod.YOLOPredictor.draw_detections
+
+    def spy(self, image, boxes, scores, labels):
+        drawn.append((self.model.pair_backbones, self.model.fold_shuffle,
+                      boxes, scores, labels))
+        return orig(self, image, boxes, scores, labels)
+
+    monkeypatch.setattr(predictor_mod.YOLOPredictor, "draw_detections", spy)
+    f32 = ["--compute-dtype", "float32"]
+    lines = {}
+    for flag in ("--fold-shuffle", "--pair-backbones"):
+        predict.run(["--mode", "predict", "--confidence", "0.01", "--output",
+                     str(tmp_path / "p.png"), flag] + f32 + _pair(data) + _model_args(data))
+        out = tmp_path / flag
+        get_map.run(["--map-mode", "1", flag] + f32 + _gm_args(data, out))
+        lines[flag] = {f.name: f.read_text().splitlines()
+                       for f in sorted((out / "detection-results").iterdir())}
+    (p0, f0, b0, s0, c0), (p1, f1, b1, s1, c1) = drawn
+    assert (p0, f0, p1, f1) == (False, True, True, True)
+    assert len(s0) == len(s1) > 0
+    np.testing.assert_array_equal(c0, c1)
+    assert np.abs(b0 - b1).max() <= 1.0 and np.abs(s0 - s1).max() < 1e-3
+    fold, pair = lines["--fold-shuffle"], lines["--pair-backbones"]
+    assert fold.keys() == pair.keys() and sum(map(len, fold.values())) > 0
+    for name in fold:
+        assert len(fold[name]) == len(pair[name])
+        for a, b in zip(fold[name], pair[name]):
+            a, b = a.split(), b.split()
+            assert a[0] == b[0] and abs(float(a[1]) - float(b[1])) <= 1.1e-3
+            assert all(abs(int(x) - int(y)) <= 1 for x, y in zip(a[2:], b[2:]))
 
 
 def _gm_args(data, out):

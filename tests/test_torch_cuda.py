@@ -495,3 +495,49 @@ def test_reference_pth_served_through_the_graph(cuda, reference_pth):
     rp = batched_nms(bk, sk, ck, backend="plain", **kw)
     assert all(torch.equal(getattr(rk, f), getattr(rp, f)) for f in _GRAPH_FIELDS)
     pred.release_graphs()
+
+
+# ---------------------------------------------------------------------------
+# the opt-in serving graphs and other input shapes (models/pairing.py,
+# split_neck_concats, multi-scale)
+
+@pytest.mark.parametrize("variant,input_shape", [
+    ("pair", (640, 640)), ("split", (640, 640)), ("deploy_split", (640, 640)),
+    ("train", (320, 320)), ("train", (320, 416)), ("train", (1280, 1280))])
+def test_variant_graph_replay_equals_eager(cuda, variant, input_shape):
+    """The paired graph, the split graph (with and without deploy) and the
+    train graph at 320², 320×416 and 1280², bf16, captured: each replay is
+    bit-equal to the eager call on every output field for two inputs
+    through one graph, and counts kernel A twice and kernel B once (in the
+    paired graph A runs on the two modality slices of its block-diagonal
+    stem); the paired graph's heatmaps too."""
+    from dcfa_yolo_tpu_torch.infer.pipeline import (detect_batch, detect_batch_graph,
+                                                    graph_count, heatmap_batch,
+                                                    heatmap_batch_graph, release_graphs)
+    from dcfa_yolo_tpu_torch.infer.predictor import YOLOPredictor
+
+    graph = dict(pair=dict(fold_shuffle=True, pair_backbones=True),
+                 split=dict(fold_shuffle=True, split_neck_concats=True),
+                 deploy_split=dict(deploy=True, fold_shuffle=True,
+                                   split_neck_concats=True, cast_weights=True),
+                 train={})[variant]
+    model = YOLOPredictor(["obj"], input_shape=input_shape, compute_dtype="bfloat16",
+                          device=cuda, **graph).model
+    kw = dict(conf_thres=0.001, iou_thres=0.5, max_det=300, pre_nms_topk=1024,
+              nms="kernel", stem="kernel")
+    x1, x2 = _serve_pairs(2, 31), _serve_pairs(2, 32)
+    eager1, eager2 = detect_batch(model, *x1, **kw), detect_batch(model, *x2, **kw)
+    held = detect_batch_graph(model, *x1, **kw)
+    before = (cuda_stem.LAUNCHES, cuda_nms.LAUNCHES)
+    second = detect_batch_graph(model, *x2, **kw)
+    torch.cuda.synchronize()
+    assert (cuda_stem.LAUNCHES - before[0], cuda_nms.LAUNCHES - before[1]) == (2, 1)
+    assert graph_count(model) == 1
+    for got, want in ((held, eager1), (second, eager2)):
+        for f in _GRAPH_FIELDS:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert eager1.valid.any()
+    if variant == "pair":
+        maps = heatmap_batch_graph(model, *x1[:2])
+        assert all(torch.equal(a, e) for a, e in zip(maps, heatmap_batch(model, *x1[:2])))
+    release_graphs(model)

@@ -379,9 +379,10 @@ class TestPredictor:
 def test_predictor_constructor_contract(tmp_path, ckpt_paths):
     """Files that are no weights of this model raise: a `.npz` none of whose
     keys the reference model has, and a truncated msgpack file, which is
-    none of the four formats; pair_backbones and split_neck_concats raise
-    naming item 11, before any device is touched; class names from neither
-    argument raise."""
+    none of the four formats; pair_backbones without fold_shuffle raises
+    (JAX `predictor.py:94-95`), before any device is touched, while
+    split_neck_concats builds the split graph from the checkpoint and
+    serves; class names from neither argument raise."""
     np.savez(tmp_path / "w.npz", a=np.zeros(3))
     (tmp_path / "w.ckpt").write_bytes(b"\x81\xa6params")  # msgpack, cut short
     for path, match in ((tmp_path / "w.npz", "none of its 1 keys"),
@@ -389,9 +390,14 @@ def test_predictor_constructor_contract(tmp_path, ckpt_paths):
         with pytest.raises(ValueError, match=match):
             YOLOPredictor(model_path=str(path), classes_path=ckpt_paths[1],
                           input_shape=(64, 64), device="cpu")
-    for flag in ("pair_backbones", "split_neck_concats"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            YOLOPredictor(["a"], **{flag: True})
+    with pytest.raises(ValueError, match="fold_shuffle=True"):
+        YOLOPredictor(["a"], pair_backbones=True)
+    split = YOLOPredictor(model_path=ckpt_paths[0], classes_path=ckpt_paths[1],
+                          input_shape=(64, 64), confidence=0.01, split_neck_concats=True,
+                          device="cpu")
+    assert split.model.split_neck_concats and split.model.bi_fpn.return_parts
+    boxes, scores, classes = split.detect(*_pil_pair(9))
+    assert boxes.shape[1] == 4 and len(boxes) == len(scores) == len(classes) > 0
     with pytest.raises(ValueError, match="classes_path"):
         YOLOPredictor(input_shape=(64, 64), device="cpu")
 
