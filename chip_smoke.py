@@ -17,8 +17,11 @@ through the graph, the export to its `.npz` and back, the `torch.export`
 artifact of the deploy pipeline), the opt-in serving graphs (paired
 backbones, split neck concats, with and without deploy, against the graphs
 they stand in for), the captured pipeline at 320², 1280² and 320×416 and
-at phi s-x, and the bench; it checks that each path went through its
-kernels and agrees with its all-plain (or train-graph, or eager) version.
+at phi s-x, data-parallel training and serving (2 gloo ranks spawned on
+this one card, fused and split steps against the one-process step with
+kernel C's sums all-reduced, then an NCCL world of 1), and the bench; it
+checks that each path went through its kernels and agrees with its
+all-plain (or train-graph, or eager, or one-process) version.
 
     python3 chip_smoke.py
 
@@ -139,18 +142,7 @@ def phase_stem(model, dev):
     st = model.backbone_rgb.stem
     w, bias = cuda_stem.fold_stem_params(st.conv.weight, st.bn.weight, st.bn.bias,
                                          st.bn.running_mean, st.bn.running_var)
-    def held(canvas, what):
-        out = cuda_stem.stem_eval(canvas, w, bias)
-        torch.cuda.synchronize()
-        ref = cuda_stem.stem_eval_plain(canvas, w, bias)
-        o, r = out.float(), ref.float()
-        err = (o - r).abs()
-        frac = (o == r).float().mean().item()
-        ok = bool(torch.all(err <= 0.03 + 0.02 * r.abs())) and frac >= 0.999
-        check(bool(torch.isfinite(o).all()), f"stem {what}: kernel output not finite")
-        check(ok, f"stem {what}: {frac:.6f} bit-equal (need 0.999), max err "
-              f"{err.max().item():.4g} (atol 0.03, rtol 0.02)")
-        return out, err, frac
+    held = lambda canvas, what: stem_eval_held(canvas, w, bias, what)
 
     # the shapes the persistent tile walk can get wrong: b1 and b3, 320² and
     # 1280², tiles that do not divide the image (random raw canvases)
@@ -182,6 +174,25 @@ def phase_stem(model, dev):
               f"{res[b]['library_ms']:.4f} bound_ms {bound_ms:.5f} ({bound_by}) | "
               + multiples(res[b]))
     return res[8]
+
+
+def stem_eval_held(canvas, w, bias, what):
+    """Kernel A against stem_eval_plain on one canvas: finite, 0.999 of the
+    outputs bit-equal and all within atol 0.03 + rtol 0.02 (the v4 class).
+    Returns (kernel output, |error|, bit-equal share)."""
+    from dcfa_yolo_tpu_torch.ops import cuda_stem
+
+    out = cuda_stem.stem_eval(canvas, w, bias)
+    torch.cuda.synchronize()
+    ref = cuda_stem.stem_eval_plain(canvas, w, bias)
+    o, r = out.float(), ref.float()
+    err = (o - r).abs()
+    frac = (o == r).float().mean().item()
+    ok = bool(torch.all(err <= 0.03 + 0.02 * r.abs())) and frac >= 0.999
+    check(bool(torch.isfinite(o).all()), f"stem {what}: kernel output not finite")
+    check(ok, f"stem {what}: {frac:.6f} bit-equal (need 0.999), max err "
+          f"{err.max().item():.4g} (atol 0.03, rtol 0.02)")
+    return out, err, frac
 
 
 def multiples(t):
@@ -436,6 +447,48 @@ def phase_serve(dev):
     return launches, nms_t
 
 
+def stem_train_sum_tol(dtype):
+    """Kernel C's limit on its sums, relative to each channel's magnitude:
+    the float32 sums run in another order (per-CTA partials, then a fixed
+    reduction over CTAs)."""
+    return 1e-4 if dtype == torch.float32 else 1e-3
+
+
+def stem_train_held(x, k, what):
+    """Kernel C against stem_train_plain on one input: pools finite and, in
+    float32, within 1e-5 of max|ĉ| plus 1e-5 relative (bf16: the v4 class);
+    sums within `stem_train_sum_tol`.  Returns (pmax, {pool: (max error,
+    bit-equal share)}, sums, the sums' relative error, max|ĉ|)."""
+    from dcfa_yolo_tpu_torch.ops import cuda_stem_train as cst
+
+    f32 = x.dtype == torch.float32
+    pmax, pmin, sums = cst.stem_train(x, k)
+    torch.cuda.synchronize()
+    rmax, rmin, rsums = cst.stem_train_plain(x, k)
+    c_max = max(rmax.float().abs().max().item(), rmin.float().abs().max().item())
+    res = {}
+    for name, o, r in (("pmax", pmax, rmax), ("pmin", pmin, rmin)):
+        o, r = o.float(), r.float()
+        err = (o - r).abs()
+        frac = (o == r).float().mean().item()
+        check(bool(torch.isfinite(o).all()), f"train stem {what} {name} not finite")
+        if f32:
+            check(bool(torch.all(err <= 1e-5 * c_max + 1e-5 * r.abs())),
+                  f"train stem f32 {what} {name}: max err {err.max().item():.4g} "
+                  f"(atol 1e-5·max|ĉ| = {1e-5 * c_max:.4g}, rtol 1e-5)")
+        else:
+            check(bool(torch.all(err <= 0.03 + 0.02 * r.abs())) and frac >= 0.999,
+                  f"train stem {what} {name}: {frac:.6f} bit-equal (need 0.999), max "
+                  f"err {err.max().item():.4g} (atol 0.03, rtol 0.02)")
+        res[name] = (err.max().item(), frac)
+    sum_err = ((sums - rsums).abs()
+               / rsums.abs().clamp_min(1e-3 * rsums.abs().max())).max().item()
+    sum_tol = stem_train_sum_tol(x.dtype)
+    check(sum_err <= sum_tol, f"train stem {what} sums: relative error {sum_err:.3g} "
+          f"> {sum_tol:g}")
+    return pmax, res, sums, sum_err, c_max
+
+
 def phase_train_stem(dev, dtype=torch.bfloat16):
     """Kernel C vs stem_train_plain at the edge shapes of its persistent
     tile walk and at the train path's shape (b16 640², one modality), on
@@ -462,35 +515,8 @@ def phase_train_stem(dev, dtype=torch.bfloat16):
     beta = torch.from_numpy((rng.standard_normal(16) * 0.1).astype(np.float32)).to(dev)
     check(bool((gamma < 0).any() and (gamma > 0).any()), "γ needs both signs")
 
-    # the f32 sums run in another order (per-CTA partials, then a fixed
-    # reduction over CTAs): relative to each channel's magnitude
-    sum_tol = 1e-4 if f32 else 1e-3
-
-    def held(x, k, what):
-        pmax, pmin, sums = cst.stem_train(x, k)
-        torch.cuda.synchronize()
-        rmax, rmin, rsums = cst.stem_train_plain(x, k)
-        c_max = max(rmax.float().abs().max().item(), rmin.float().abs().max().item())
-        res = {}
-        for name, o, r in (("pmax", pmax, rmax), ("pmin", pmin, rmin)):
-            o, r = o.float(), r.float()
-            err = (o - r).abs()
-            frac = (o == r).float().mean().item()
-            check(bool(torch.isfinite(o).all()), f"train stem {what} {name} not finite")
-            if f32:
-                check(bool(torch.all(err <= 1e-5 * c_max + 1e-5 * r.abs())),
-                      f"train stem f32 {what} {name}: max err {err.max().item():.4g} "
-                      f"(atol 1e-5·max|ĉ| = {1e-5 * c_max:.4g}, rtol 1e-5)")
-            else:
-                check(bool(torch.all(err <= 0.03 + 0.02 * r.abs())) and frac >= 0.999,
-                      f"train stem {what} {name}: {frac:.6f} bit-equal (need 0.999), max "
-                      f"err {err.max().item():.4g} (atol 0.03, rtol 0.02)")
-            res[name] = (err.max().item(), frac)
-        sum_err = ((sums - rsums).abs()
-                   / rsums.abs().clamp_min(1e-3 * rsums.abs().max())).max().item()
-        check(sum_err <= sum_tol, f"train stem {what} sums: relative error {sum_err:.3g} "
-              f"> {sum_tol:g}")
-        return pmax, res, sums, sum_err, c_max
+    sum_tol = stem_train_sum_tol(dtype)
+    held = stem_train_held
 
     # the shapes the persistent tile walk can get wrong, pools and sums
     for sb, sh, sw in EDGE_SHAPES:
@@ -1744,6 +1770,400 @@ def phase_phis(dev):
     return total
 
 
+def grad_leaves(flat, named):
+    """A flat gradient (the trainer's parameter order) as float64 leaves."""
+    out, o = {}, 0
+    for name, p in named:
+        out[name] = flat[o:o + p.numel()].astype(np.float64)
+        o += p.numel()
+    return out
+
+
+ABS_FLOOR = 1e-6  # of the gradient's largest entry: float32 rounding of the step
+
+
+def leaf_cosines(got, ref):
+    """Per-leaf (cosine, max |Δ|, max |ref|) of two gradients, the last two
+    relative to the reference gradient's largest entry."""
+    top = max(np.abs(v).max() for v in ref.values())
+    out = {}
+    for n, r in ref.items():
+        g = got[n]
+        den = np.linalg.norm(g) * np.linalg.norm(r)
+        out[n] = (float(g @ r / den) if den > 0 else float("nan"),
+                  float(np.abs(g - r).max() / top), float(np.abs(r).max() / top))
+    return out
+
+
+def zero_leaves(leaves, cos_tol):
+    """The leaves under the cosine limit whose gradient is zero in exact
+    arithmetic, where a cosine means nothing: the reference and the
+    difference both within ABS_FLOOR of the gradient's largest entry
+    (exactly zero: a ReLU dead on the whole batch, a head branch with no
+    foreground anchor; rounding residue: a bias that reaches a train-mode
+    BN through linear layers only, as the ShuffleNet units' `b2_dwconv.bias`
+    and `b2_bn2.bias`).  Every other leaf is held to the cosine limit."""
+    return sorted(k for k, (c, d, r) in leaves.items()
+                  if not c >= cos_tol and r <= ABS_FLOOR and d <= ABS_FLOOR)
+
+
+def rel_err(got, ref):
+    """max |got − ref| relative to |ref|, floored at 1e-3 of max |ref| (a
+    channel whose mean sits near zero is held to the others' scale)."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float((np.abs(got - ref) / np.maximum(np.abs(ref), 1e-3 * np.abs(ref).max())).max())
+
+
+def stem_moments(after, before, n):
+    """The stem BNs' batch mean and biased var recovered from one update of
+    their running statistics (momentum 0.1, Bessel n/(n−1))."""
+    out = {}
+    for mod in ("rgb", "nir"):
+        k = f"backbone_{mod}.stem.bn.running_"
+        mean = (after[k + "mean"] - 0.9 * before[k + "mean"]) / 0.1
+        var = (after[k + "var"] - 0.9 * before[k + "var"]) / 0.1 * (n - 1) / n
+        out[mod] = (mean.astype(np.float64), var.astype(np.float64))
+    return out
+
+
+def phase_dp(dev, model):
+    """Data-parallel training and serving on this one card: 2 ranks spawned
+    (`parallel/mesh.py::run_ranks`, gloo, both on cuda:0, TF32 off), each
+    loading the kernel library `phase_build` built, then an NCCL world of 1
+    in this process.  Two ranks on one card measure no scaling.
+      * kernel C across the ranks: `fused_train_stem` with the group on each
+        rank's b4 half of a b8 640² float32 batch against one call on the
+        b8 batch (y within 1e-4 of max|y|, moments rtol 1e-4, gradients
+        within 1e-4 of their largest; x's per half, the parameters' summed);
+        each rank's all-reduced sums against `stem_train_plain` with the
+        group and against one b8 launch, at C's sum limit (1e-4 relative);
+      * fused, 2 ranks, global b8 (4 a rank) at phi='n' 640², kernel C in
+        both stems, the reference init: against this process's one step on
+        the b8 batch from the same weights.  float32: loss within 1e-4
+        relative, every gradient leaf's cosine ≥ 0.999 but those under it
+        that are zero in exact arithmetic (`zero_leaves`, listed), the stems'
+        batch moments at C's sum limit (1e-4 relative).  bf16: loss within
+        2% ([train]'s limit) and the stems' moments at C's bf16 sum limit
+        (1e-3); the leaves' cosines reported, the stem conv's beside
+        each bf16 gradient's cosine to the float32 one at b8 and at b4 (the
+        one-process b4 step in bf16 and in float32), which says how far
+        bf16 alone moves it.  The replicas' states are equal bit for bit
+        after every step;
+      * split, 2 ranks, the same b4 on both: against one step on that b4,
+        at the float32 limits;
+      * NCCL, world 1: the fused step through the group `torch.equal` to the
+        trainer without one (parameters, BN statistics, EMA) after 2 steps;
+      * serving: each rank serves its b4 half of a seeded b8 through
+        `detect_batch_graph` (a capture, then a replay: kernels A twice and
+        B once), `torch.equal` to this process's b4 call on the same half;
+        the gap to the b8 call reported;
+    then the ms of a DP step beside the one-process step, the all-reduce of
+    the flat gradient (2,678,850 float32) and of C's 256-byte float64 sums
+    on gloo and NCCL, kernels A, B and C at the local batch b4 held against
+    their plain versions ([stem]'s and [train_stem_f32]'s limits) and timed
+    beside their bounds, and the spawn and set-up seconds."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from dcfa_yolo_tpu_torch.config import ModelConfig, TrainConfig
+    from dcfa_yolo_tpu_torch.infer.pipeline import detect_batch_graph, predict, release_graphs
+    from dcfa_yolo_tpu_torch.models.yolo import DCFAYolo, init_model
+    from dcfa_yolo_tpu_torch.ops import cuda_nms, cuda_stem, cuda_stem_train
+    from dcfa_yolo_tpu_torch.ops.nms import _select_candidates
+    from dcfa_yolo_tpu_torch.ops.resize import letterbox_batch_cf
+    from dcfa_yolo_tpu_torch.parallel import dryrun, serve
+    from dcfa_yolo_tpu_torch.parallel.mesh import init_process_group, run_calls, run_ranks
+    from dcfa_yolo_tpu_torch.profile_train import synthetic_batch
+    from dcfa_yolo_tpu_torch.train.trainer import Trainer
+    from dcfa_yolo_tpu_torch.utils.profiling import (H100_BF16_FLOPS, H100_FP32_FLOPS,
+                                                     bound, device_ms)
+
+    hw, tc = (640, 640), TrainConfig()
+    lr = tc.scaled_lrs()[0]
+    host = synthetic_batch(8, hw, tc.max_boxes, SEED + 120)
+    half = tuple(x[:4] for x in host)
+    sd = {k: v.numpy() for k, v in init_model(
+        ModelConfig(num_classes=1, phi="n", input_shape=hw), SEED, "cpu",
+        train=True).state_dict().items()}
+    cfg = lambda dt: dict(num_classes=1, phi="n", input_shape=hw, compute_dtype=dt,
+                          train_stem_backend="kernel")
+    base = dict(state_dict=sd, lr=lr, device="cuda:0", tf32=False, grad=True)
+    rng = np.random.default_rng(SEED + 121)
+    stem_in = dict(x=rng.random((8, 640, 640, 3), np.float32),
+                   gy=rng.standard_normal((8, 320, 320, 16)).astype(np.float32),
+                   kernel=(rng.standard_normal((16, 3, 3, 3)) * 0.3).astype(np.float32),
+                   gamma=rng.standard_normal(16).astype(np.float32),
+                   beta=(rng.standard_normal(16) * 0.1).astype(np.float32), eps=1e-5)
+    r8, n8 = serve_inputs(8, SEED + 130)
+    hw8 = np.tile([480.0, 640.0], (8, 1)).astype(np.float32)
+    serve_kw = dict(conf_thres=0.001, iou_thres=0.5, max_det=300, pre_nms_topk=1024,
+                    nms="kernel", stem="kernel")
+    sizes = {"grad": (2678850, "float32"), "sums": (32, "float64")}
+    calls = [
+        (dryrun.stem_rank, (dict(stem_in, device="cuda:0", time_iters=20, sums=True),)),
+        (dryrun.train_rank, (dict(base, cfg=cfg("float32"), batch=host, step_mode="fused",
+                                  steps=3),)),
+        (dryrun.train_rank, (dict(base, cfg=cfg("bfloat16"), batch=host,
+                                  step_mode="fused"),)),
+        (dryrun.train_rank, (dict(base, cfg=cfg("float32"), batch=half, per_rank=True,
+                                  step_mode="split"),)),
+        (serve.serve_rank, (dict(cfg=dict(num_classes=1, phi="n", input_shape=hw,
+                                          compute_dtype="bfloat16"), seed=SEED,
+                                 device="cuda:0", inputs=(r8, n8, hw8), kw=serve_kw,
+                                 calls=2),)),
+        (dryrun.allreduce_rank, (dict(device="cuda:0", sizes=sizes, iters=20),)),
+    ]
+    t_spawn = time.time()
+    ranks = run_ranks(run_calls, 2, (calls,), backend="gloo", device="cuda", threads=2,
+                      timeout_s=900)
+    wall = time.time() - t_spawn
+    stem_r, f32_r, bf16_r, split_r, serve_r, ar_r = zip(*ranks)
+    setup_s = max(r["started"] for r in stem_r) - t_spawn
+    launches = {"stem_train": sum(r["launches"]["stem_train"] - r["launches"]["stem_train_f32"]
+                                  for r in bf16_r),
+                "stem_train_f32": sum(r["launches"]["stem_train_f32"]
+                                      for r in (*f32_r, *split_r)) + sum(
+                                          r["launches"] for r in stem_r),
+                "stem_eval": sum(r["launches"]["stem_eval"] for r in serve_r),
+                "nms_suppress": sum(r["launches"]["nms_suppress"] for r in serve_r)}
+    print(f"[dp] 2 gloo ranks on cuda:0: spawned, set up and run in {wall:.1f} s "
+          f"(spawn and set-up {setup_s:.1f} s, to the later rank's first call); "
+          f"launches {launches} | {CARD}")
+
+    # kernel C across the ranks against one call on the b8 batch
+    x = torch.from_numpy(stem_in["x"]).to(dev).requires_grad_(True)
+    ps = [torch.from_numpy(stem_in[k]).to(dev).requires_grad_(True)
+          for k in ("kernel", "gamma", "beta")]
+    y, mean, var = cuda_stem_train.fused_train_stem(x, *ps, 1e-5)
+    grads = torch.autograd.grad(y, [x, *ps], torch.from_numpy(stem_in["gy"]).to(dev))
+    y, mean, var = (t.detach().cpu().numpy() for t in (y, mean, var))
+    check(all(r["launches"] == 1 for r in stem_r), f"kernel C launches a rank: "
+          f"{[r['launches'] for r in stem_r]}, expected 1")
+    y_err = np.abs(np.concatenate([r["y"] for r in stem_r]) - y).max()
+    m_err = max(rel_err(r["mean"], mean) for r in stem_r)
+    v_err = max(rel_err(r["var"], var) for r in stem_r)
+    g_err = {}
+    for k, ref in zip(("x", "kernel", "gamma", "beta"), grads):
+        ref = ref.cpu().numpy()
+        got = (np.concatenate([r["d_x"] for r in stem_r]) if k == "x"
+               else sum(r[f"d_{k}"] for r in stem_r))
+        g_err[k] = float(np.abs(got - ref).max() / np.abs(ref).max())
+    print(f"[dp] kernel C over 2 ranks (b4 each) vs one b8 call, float32: y max err "
+          f"{y_err:.3g} (tol {1e-4 * np.abs(y).max():.3g}), mean rel {m_err:.3g}, var rel "
+          f"{v_err:.3g} (tol 1e-4), gradients rel to their largest {g_err} (tol 1e-4)")
+    check(y_err <= 1e-4 * np.abs(y).max() and m_err <= 1e-4 and v_err <= 1e-4
+          and max(g_err.values()) <= 1e-4, "kernel C across ranks disagrees with one call")
+    # its sums over the group against the plain twin's over the group and
+    # against one launch on the whole b8
+    x8 = torch.from_numpy(stem_in["x"]).to(dev)
+    sums8 = cuda_stem_train.stem_train(x8, ps[0].detach())[2].cpu().numpy()
+    plain_err = max(rel_err(r["sums"], r["plain_sums"]) for r in stem_r)
+    one_err = max(rel_err(r["sums"], sums8) for r in stem_r)
+    same = all(np.array_equal(r["sums"], stem_r[0]["sums"]) for r in stem_r)
+    print(f"[dp] kernel C sums all-reduced over the 2 ranks (b4 each, float32): against "
+          f"stem_train_plain over the group rel {plain_err:.3g}, against one b8 launch rel "
+          f"{one_err:.3g} (tol {stem_train_sum_tol(torch.float32):g}); equal on both ranks "
+          f"{same}")
+    check(same and max(plain_err, one_err) <= stem_train_sum_tol(torch.float32),
+          "kernel C's sums across ranks disagree with its plain twin or one launch")
+
+    def one_process(dtype, batch, steps):
+        m = DCFAYolo(ModelConfig(**cfg(dtype)))
+        m.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+        t = Trainer(m, TrainConfig(), device=dev)
+        b = t.put_batch(*batch)
+        out = dict(named=list(t._named), losses=[], ms=[])
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lb, g = t.step_with_grad(b, lr)
+            out["losses"].append(float(lb.total))
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                out["grad"] = g.cpu().numpy()
+                out["stats"] = {k: v.cpu().numpy() for k, v in t.state.batch_stats.items()}
+        del t, m
+        return out
+
+    stats0 = {k: v for k, v in sd.items() if "running_" in k}
+    refs = {}
+    for what, got, dtype, batch, steps, loss_tol, cos_tol in (
+            ("fused float32", f32_r, "float32", host, 3, 1e-4, 0.999),
+            ("fused bf16", bf16_r, "bfloat16", host, 1, 0.02, 0.99),
+            ("split float32", split_r, "float32", half, 1, 1e-4, 0.999)):
+        ref = refs[what] = one_process(dtype, batch, steps)
+        n = len(batch[0]) * hw[0] * hw[1]
+        for r in got:
+            check(r["digests"] == got[0]["digests"], f"[dp] {what}: the replicas differ")
+        r = got[0]
+        loss_rel = abs(r["terms"][0][0] - ref["losses"][0]) / abs(ref["losses"][0])
+        leaves = leaf_cosines(grad_leaves(r["grad"], ref["named"]),
+                              grad_leaves(ref["grad"], ref["named"]))
+        zero = zero_leaves(leaves, cos_tol)
+        held = {k: v[0] for k, v in leaves.items() if k not in zero}
+        below = sorted(k for k, c in held.items() if not c >= cos_tol)
+        for k in below[:8]:
+            print(f"[dp] {what}: {k} cosine {leaves[k][0]:.6f}, max |Δ| "
+                  f"{leaves[k][1]:.3g}, max |ref| {leaves[k][2]:.3g} of the gradient's "
+                  f"largest entry")
+        mom_err = 0.0
+        if what != "split float32":
+            dpm, onem = (stem_moments(s, stats0, n) for s in (r["batch_stats"], ref["stats"]))
+            mom_err = max(rel_err(a, b) for mod in dpm for a, b in zip(dpm[mod], onem[mod]))
+        mom_tol = stem_train_sum_tol(getattr(torch, dtype))
+        stem_cos = min(leaves[f"backbone_{m}.stem.conv.weight"][0] for m in ("rgb", "nir"))
+        worst = min(held.items(), key=lambda kv: kv[1])
+        print(f"[dp] {what}, 2 ranks vs one process: loss {r['terms'][0][0]:.6f} vs "
+              f"{ref['losses'][0]:.6f} (rel {loss_rel:.3g}, tol {loss_tol:g}); {len(leaves)} "
+              f"gradient leaves, {len(held)} held to cosine >= {cos_tol}: min "
+              f"{worst[1]:.7f} ({worst[0]}), {len(below)} under it; stem conv cosine "
+              f"{stem_cos:.7f}; stem batch moments rel {mom_err:.3g} (tol {mom_tol:g}); "
+              f"replicas equal after {len(r['digests'])} steps")
+        print(f"[dp] {what}: {len(zero)} leaves under the cosine limit and zero in exact "
+              f"arithmetic (reference and difference within {ABS_FLOOR:g} of the "
+              f"gradient's largest entry; max "
+              f"|ref| {max((leaves[k][2] for k in zero), default=0):.3g}, max |Δ| "
+              f"{max((leaves[k][1] for k in zero), default=0):.3g}): {', '.join(zero)}")
+        check(loss_rel <= loss_tol, f"[dp] {what}: loss off")
+        check(mom_err <= mom_tol, f"[dp] {what}: stem batch moments rel {mom_err:.3g}")
+        if what == "fused bf16":
+            print(f"[dp] fused bf16 (cosines reported): stem conv cosine >= {cos_tol}: "
+                  f"{stem_cos >= cos_tol}; leaves under {cos_tol}: {len(below)}")
+        else:
+            check(not below, f"[dp] {what}: gradient leaves below cosine {cos_tol}: {below}")
+        if what == "fused float32":
+            dp_ms = float(np.median([m for r in got for m in r["step_ms"][1:]]))
+            one_ms = float(np.median(ref["ms"][1:]))
+            print(f"[dp] fused float32 b8 step: 2 ranks (b4 each, one card, gloo) "
+                  f"{dp_ms:.1f} ms, one process {one_ms:.1f} ms (host clock, steps 2-3, "
+                  f"each ending in a synchronise); two ranks sharing one card measure "
+                  f"no scaling | {CARD}")
+
+    # how far bf16 alone moves the stem conv gradient: each bf16 gradient
+    # against the float32 one on the same batch and weights, at b8 and b4
+    named = refs["fused float32"]["named"]
+
+    def stem_cosine(a, b):
+        c = leaf_cosines(grad_leaves(a, named), grad_leaves(b, named))
+        return min(c[f"backbone_{m}.stem.conv.weight"][0] for m in ("rgb", "nir"))
+
+    bf16_b4 = one_process("bfloat16", half, 1)["grad"]
+    f32_b8, f32_b4 = refs["fused float32"]["grad"], refs["split float32"]["grad"]
+    print(f"[dp] bf16 stem conv gradient cosines (min of rgb, nir): 2 ranks vs one process "
+          f"at b8 {stem_cosine(bf16_r[0]['grad'], refs['fused bf16']['grad']):.7f}; "
+          f"against float32 on the same batch: 2 ranks b8 "
+          f"{stem_cosine(bf16_r[0]['grad'], f32_b8):.7f}, one process b8 "
+          f"{stem_cosine(refs['fused bf16']['grad'], f32_b8):.7f}, one process b4 "
+          f"{stem_cosine(bf16_b4, f32_b4):.7f}")
+
+    # serving: each rank's half against this process's b4 call on it
+    check(all(r["replay_launches"] == {"stem_eval": 2, "nms_suppress": 1}
+              for r in serve_r), f"[dp] serving launches a replay: "
+          f"{[r['replay_launches'] for r in serve_r]}, expected A twice and B once")
+    for i, r in enumerate(serve_r):
+        sl = slice(4 * i, 4 * i + 4)
+        ref = detect_batch_graph(model, r8[sl], n8[sl], hw8[sl],
+                                 **{k: v for k, v in serve_kw.items()})
+        bad = [f for f, v in r["result"].items()
+               if not np.array_equal(v, getattr(ref, f).cpu().numpy())]
+        check(not bad, f"[dp] serving rank {i} differs from the b4 call in {bad}")
+    whole = detect_batch_graph(model, r8, n8, hw8, **serve_kw)
+    dets = lambda res, j: tuple(np.asarray(res[f][j])[np.asarray(res["valid"][j])]
+                                for f in ("boxes", "scores", "classes"))
+    ranks_res = {f: np.concatenate([r["result"][f] for r in serve_r]) for f in
+                 ("boxes", "scores", "classes", "valid")}
+    whole_res = {f: getattr(whole, f).cpu().numpy() for f in ranks_res}
+    served = [dets(ranks_res, j) for j in range(8)]
+    ref = [dets(whole_res, j) for j in range(8)]
+    counts, classes, box, score = per_image_agreement(served, nearest_slots(served, ref))
+    print(f"[dp] serving: each rank's b4 half torch.equal to the b4 call; against the b8 "
+          f"call (reported, bf16, matched by box): counts {counts}, classes equal "
+          f"{classes}, max |Δbox| {box:.4g} px, max |Δscore| {score:.4g} ([trained]'s "
+          f"bf16 limits 1 px, 0.005)")
+    release_graphs(model)
+
+    # kernels A, B and C at the local batch (b4), for the kernel table's
+    # DP rows
+    st = model.backbone_rgb.stem
+    w, bias = cuda_stem.fold_stem_params(st.conv.weight, st.bn.weight, st.bn.bias,
+                                         st.bn.running_mean, st.bn.running_var)
+    canvas = letterbox_batch_cf(torch.from_numpy(r8[:4]).to(dev), hw).to(
+        torch.bfloat16).contiguous()
+    out, a_err, a_frac = stem_eval_held(canvas, w, bias, "[dp] b4")
+    a_bound = bound(canvas.numel() * 2 + out.numel() * 2 + w.numel() * 2 + bias.numel() * 4,
+                    2 * 4 * 640 * 640 * 16 * 27, H100_BF16_FLOPS)
+    a_ms = device_ms(lambda: cuda_stem.stem_eval(canvas, w, bias), 50)
+    a_plain = device_ms(lambda: cuda_stem.stem_eval_plain(canvas, w, bias), 10)
+    bk, sk, ck = predict(model, r8[:4], n8[:4], stem="kernel")
+    _, top_s, _, alive, off = _select_candidates(bk, sk, ck.to(torch.int32),
+                                                 torch.tensor(0.001, device=dev), 1024)
+    b_t = time_nms(off.contiguous(), alive, 0.5, top_s)
+    # what C must move at b4 float32: the input, both pools, the weights
+    # and the (16, 2) sums
+    xc4 = torch.from_numpy(stem_in["x"][:4]).to(dev)
+    c_bound = bound(xc4.numel() * 4 + 2 * 4 * 320 * 320 * 16 * 4 + 16 * 27 * 4 + 32 * 4,
+                    2 * 4 * 640 * 640 * 16 * 27, H100_FP32_FLOPS)
+    kc = torch.from_numpy(stem_in["kernel"]).to(dev)
+    _, c_res, _, c_sum_err, c_max = stem_train_held(xc4, kc, "[dp] b4 float32")
+    c_ms = device_ms(lambda: cuda_stem_train.stem_train(xc4, kc), 20)
+    c_plain = device_ms(lambda: cuda_stem_train.stem_train_plain(xc4, kc), 5)
+    c_group_ms = float(np.median([r["ms"] for r in stem_r]))
+    print(f"[dp] local batch b4 against the plain versions: A bit-equal {a_frac:.6f}, max "
+          f"err {a_err.max().item():.4g} ([stem]'s limits); B keep masks equal; C float32 "
+          f"pools max err {max(c_res['pmax'][0], c_res['pmin'][0]):.4g} (max|ĉ| "
+          f"{c_max:.4g}), sums rel {c_sum_err:.3g} ([train_stem_f32]'s limits)")
+    print(f"[dp] local batch b4, one rank's launch: A {a_ms:.4f} ms (plain {a_plain:.4f}, "
+          f"bound {a_bound[0]:.5f}, {a_bound[1]}); B served b4 K=1024 {b_t['ms']:.4f} ms "
+          f"(plain {b_t['plain_ms']:.2f}, bound {b_t['bound_ms']:.6f}, {b_t['bound_by']}); "
+          f"C float32 {c_ms:.4f} ms alone (plain {c_plain:.4f}, bound {c_bound[0]:.5f}, "
+          f"{c_bound[1]}), with its sums "
+          f"all-reduced over the 2 gloo ranks {c_group_ms:.4f} ms (host clock, both ranks "
+          f"on the card, the 256-byte all-reduce through the host) | {CARD}")
+
+    # NCCL, world 1: the fused step through the group against no group
+    # cuDNN's default algorithms need not repeat bit for bit, so this check
+    # runs with deterministic ones
+    store = tempfile.mkdtemp(prefix="dcfa_nccl_")
+    cuda_stem_train.LAUNCHES = cuda_stem_train.LAUNCHES_F32 = 0
+    group = init_process_group("nccl", "file://" + os.path.join(store, "store"), 0, 1, dev)
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = {}
+        for name, g in (("nccl", group), ("none", None), ("none again", None)):
+            m = DCFAYolo(ModelConfig(**cfg("float32")))
+            m.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+            t = Trainer(m, TrainConfig(), device=dev, step_mode="fused", group=g)
+            b = t.put_batch(*host)
+            for _ in range(2):
+                t.train_step(b, lr)
+            st = t.state
+            runs[name] = {k: v.clone() for d in (st.params, st.batch_stats, st.ema)
+                          for k, v in d.items()}
+            del t, m
+        nccl_ar = dryrun.allreduce_rank(0, 1, group, dict(device=dev, sizes=sizes, iters=20))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    launches["stem_train_f32"] += cuda_stem_train.LAUNCHES_F32
+    differ = lambda a, b: [k for k in runs[a] if not torch.equal(runs[a][k], runs[b][k])]
+    print(f"[dp] NCCL world 1, fused b8 float32, 2 steps: parameters, BN statistics and "
+          f"EMA torch.equal to the trainer without a group: {not differ('nccl', 'none')} "
+          f"({len(differ('nccl', 'none'))} entries differ); two runs without a group "
+          f"equal: {not differ('none', 'none again')} (deterministic cuDNN)")
+    gloo_ar = {k: float(np.median([r[k] for r in ar_r])) for k in sizes}
+    print(f"[dp] all-reduce, host ms a call ending in a synchronise: flat gradient "
+          f"(2,678,850 float32, 10.7 MB) gloo 2 ranks on one card {gloo_ar['grad']:.3f}, "
+          f"NCCL world 1 {nccl_ar['grad']:.3f}; C's 256-byte float64 sums gloo "
+          f"{gloo_ar['sums']:.4f}, NCCL {nccl_ar['sums']:.4f} | {CARD}")
+    check(not differ("nccl", "none"), f"[dp] NCCL world 1 differs from no group: "
+          f"{differ('nccl', 'none')[:5]}")
+    return launches
+
+
 def phase_bench():
     """The port's bench at BENCH_BATCH=32, BENCH_ITERS=5, with the stem and
     NMS kernels' launch counts read around it; its JSON on a line of its
@@ -1807,6 +2227,8 @@ def main() -> int:
         for phase in (phase_scales, phase_phis):
             for name, n in phase(dev).items():
                 launches[name] += n
+        for name, n in phase_dp(dev, model).items():
+            launches[name] += n
         phase_bench()
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

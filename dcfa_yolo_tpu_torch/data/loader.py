@@ -9,7 +9,10 @@ PIL, cv2 and numpy release the GIL in their heavy loops.
 Unlike the JAX loader, whose workers share the global random streams (so the
 augmentation depends on thread timing), each item draws from its own
 generators, seeded from (seed, epoch, position in the epoch): a run repeats
-itself at any worker count.
+itself at any worker count.  In data-parallel training (`rank`, `world`)
+each rank loads only its even slice of the positions of every global batch
+(the slice a JAX data sharding puts on its devices): a W-rank run sees the
+pairs and augmentations of the one-process run, padded tail included.
 """
 
 from __future__ import annotations
@@ -108,7 +111,9 @@ class PairedDetectionDataset:
 
 
 class BatchLoader:
-    """Iterates shuffled fixed-size batches with background prefetch."""
+    """Iterates shuffled fixed-size batches with background prefetch.
+    `batch_size` is the global batch; rank `rank` of `world` gets rows
+    [rank·B/W, (rank+1)·B/W) of each."""
 
     def __init__(
         self,
@@ -120,7 +125,12 @@ class BatchLoader:
         num_workers: int = 4,
         seed: int = 11,
         prefetch: int = 2,
+        rank: int = 0,
+        world: int = 1,
     ):
+        if batch_size % world:
+            raise ValueError(f"a batch of {batch_size} does not divide over "
+                             f"{world} ranks")
         self.dataset = dataset
         self.batch_size = batch_size
         self.max_boxes = max_boxes
@@ -130,6 +140,7 @@ class BatchLoader:
         self.num_workers = max(1, min(num_workers, os.cpu_count() or 1))
         self.seed = seed
         self.prefetch = prefetch
+        self.rank, self.world = rank, world
         self._epoch = 0
         self._stats_lock = threading.Lock()
         # per-epoch accounting, reset at each __iter__ (read after the epoch)
@@ -212,6 +223,8 @@ class BatchLoader:
 
         batches: List[Tuple[int, int, np.ndarray, int]] = []
         stop = n - n % self.batch_size if self.drop_last else n
+        local = self.batch_size // self.world
+        lo = self.rank * local
         for i in range(0, stop, self.batch_size):
             idxs = order[i:i + self.batch_size]
             n_real = len(idxs)
@@ -219,7 +232,9 @@ class BatchLoader:
                 # pad the ragged tail by repetition: a fixed batch shape;
                 # sample_mask marks the repeats
                 idxs = np.resize(idxs, self.batch_size)
-            batches.append((epoch, i, idxs, n_real))
+            # this rank's positions i+lo .. i+lo+local of the global batch
+            batches.append((epoch, i + lo, idxs[lo:lo + local],
+                            min(max(n_real - lo, 0), local)))
 
         # a bounded in-flight window keeps memory flat; results are yielded
         # in order

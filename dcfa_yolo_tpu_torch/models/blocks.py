@@ -20,6 +20,7 @@ from dcfa_yolo_tpu_torch.ops.cuda_stem_train import (fused_train_stem,
 from dcfa_yolo_tpu_torch.ops.norm import BatchNorm, update_running
 from dcfa_yolo_tpu_torch.ops.pool import (global_avg_pool, global_max_pool,
                                           max_pool_same)
+from dcfa_yolo_tpu_torch.parallel.mesh import world_size
 
 
 class ChannelAttention(nn.Module):
@@ -75,13 +76,17 @@ class ConvMaxpool(nn.Module):
     (kernel C) and updates the running statistics as `blocks.py:149-158`
     does: momentum 0.1, Bessel with n = B·H·W at full resolution.  Both
     graphs hold the same parameters and buffers.  `backend` is
-    `ModelConfig.train_stem_backend`, resolved per call from the input."""
+    `ModelConfig.train_stem_backend`, resolved per call from the input.
+    `group` (set with `bn.group` by `DCFAYolo.set_process_group`): kernel C
+    takes its moments over the group's global batch (`blocks.py:148-154`),
+    and n counts every rank's images."""
 
     def __init__(self, c_in: int, c_out: int, backend: str = "auto"):
         super().__init__()
         self.backend = backend
         self.conv = Conv(c_in, c_out, 3, 1)
         self.bn = BatchNorm(c_out)
+        self.group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training and resolve_train_stem(
@@ -89,9 +94,9 @@ class ConvMaxpool(nn.Module):
                 x.device) == "kernel":
             y, mean, var = fused_train_stem(
                 x.permute(0, 2, 3, 1), self.conv.weight, self.bn.weight,
-                self.bn.bias, self.bn.eps)
+                self.bn.bias, self.bn.eps, self.group)
             update_running(self.bn, mean.detach(), var.detach(),
-                           x.shape[0] * x.shape[2] * x.shape[3])
+                           x.shape[0] * x.shape[2] * x.shape[3] * world_size(self.group))
             return y.permute(0, 3, 1, 2)
         return max_pool_same(torch.relu(self.bn(self.conv(x))), 3, 2)
 

@@ -19,13 +19,14 @@ from dcfa_yolo_tpu_torch.config import ModelConfig
 from dcfa_yolo_tpu_torch.device import resolve_device
 from dcfa_yolo_tpu_torch.models.backbone import Backbone
 from dcfa_yolo_tpu_torch.models.blocks import (CBAM, C2fRepGhost, ConcatBiFPN,
-                                               dfl_decode)
+                                               ConvMaxpool, dfl_decode)
 from dcfa_yolo_tpu_torch.models.pairing import (PairedBackbone, PairedCBAM,
                                                 PairedConcatBiFPN)
 from dcfa_yolo_tpu_torch.ops.boxes import make_anchors_np
 from dcfa_yolo_tpu_torch.ops.consts import device_const
 from dcfa_yolo_tpu_torch.ops.conv import Conv, ConvBnAct
 from dcfa_yolo_tpu_torch.ops.cuda_stem_train import resolve_train_stem
+from dcfa_yolo_tpu_torch.ops.norm import BatchNorm
 from dcfa_yolo_tpu_torch.ops.resize import resize_bilinear_align_corners
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -177,6 +178,16 @@ class DCFAYolo(nn.Module):
         f3p = self.cbam_pair_feat3(f3p)
         b, c, h, w = f3p.shape
         return ((f1p, 4), (f2p, 4), (f3p, 2)), f3p.view(b, 2, c // 2, h, w).sum(dim=1)
+
+    def set_process_group(self, group) -> None:
+        """Share the train-mode BatchNorm moments (both stems' included)
+        over the ranks of `group`, as `axis_name` does in the JAX model
+        (`backbone.py:23-31`, `yolo.py:70-79`); None makes them local
+        again.  A process group does not pickle or deep-copy: copy the
+        model before setting one."""
+        for m in self.modules():
+            if isinstance(m, (BatchNorm, ConvMaxpool)):
+                m.group = group
 
     def train_stem_route(self) -> str:
         """The train-mode stem graph this model runs where its parameters

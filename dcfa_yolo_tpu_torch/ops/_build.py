@@ -116,14 +116,19 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dcfa_error_string.restype = ctypes.c_char_p
 
 
-def load_library() -> ctypes.CDLL:
+def load_library(build: bool = True) -> ctypes.CDLL:
     """The kernel library, built on first call (raises where it cannot be
-    built; there is no fallback)."""
+    built; there is no fallback).  `build=False` only loads a library built
+    before (the ranks of a data-parallel run that their parent built for),
+    and raises where there is none."""
     global _LIB, BUILD_SECONDS
     if _LIB is None:
         t0 = time.perf_counter()
         out = BUILD_DIR / f"libdcfa_kernels.{_digest()}.so"
         if not out.exists():
+            if not build:
+                raise RuntimeError(f"no kernel library at {out}: build it first "
+                                   "(ops/_build.py::load_library)")
             _build(out)
         lib = ctypes.CDLL(str(out))
         _declare(lib)

@@ -13,6 +13,11 @@ statistics move as in torch: `r ← (1−m)·r + m·stat`, the variance with the
 Bessel factor n/(n−1).  `F.batch_norm` is not used: its variance and its
 backward are other formulas, and in bfloat16 it rounds at other places.
 
+With a process group (`BatchNorm.group`, the JAX module's `axis_name`,
+`ops/norm.py:61-67`) the train-mode `mean` and `mean²` are averaged over
+the ranks before the variance (SyncBN; equal local batches), and the Bessel
+factor counts the global n.  Without one nothing is reduced.
+
 `nn.Module.train()` / `eval()` switch between the two.  Names follow
 `torch.nn.BatchNorm2d` (weight/bias/running_mean/running_var) so the flax
 tree maps onto it by renaming (`models/convert.py`).
@@ -23,12 +28,18 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from dcfa_yolo_tpu_torch.parallel.mesh import all_reduce_mean, world_size
 
-def batch_moments(xf: torch.Tensor):
+
+def batch_moments(xf: torch.Tensor, group=None):
     """Per-channel (mean, var) of a float32 NCHW tensor over N, H, W, as
-    `ops/norm.py:59-66` of the JAX package computes them."""
+    `ops/norm.py:59-67` of the JAX package computes them: the local `mean`
+    and `mean²`, averaged over the ranks of `group` (differentiably), then
+    `var = max(mean² − mean², 0)`."""
     mean = xf.mean(dim=(0, 2, 3))
     mean2 = (xf * xf).mean(dim=(0, 2, 3))
+    if group is not None:
+        mean, mean2 = all_reduce_mean(torch.stack([mean, mean2]), group).unbind(0)
     return mean, torch.clamp_min(mean2 - mean * mean, 0.0)
 
 
@@ -45,7 +56,9 @@ def update_running(bn: "BatchNorm", mean: torch.Tensor, var: torch.Tensor,
 
 class BatchNorm(nn.Module):
     """Per-channel BatchNorm over dim 1 of an NCHW tensor.  `momentum` is
-    torch's (the weight of the new batch statistic)."""
+    torch's (the weight of the new batch statistic).  `group`: the process
+    group whose ranks share the train-mode moments (None: local), set by
+    `DCFAYolo.set_process_group`."""
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -55,6 +68,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.group = None
 
     def folded(self):
         """(inv, shift) in float32, shape (C,)."""
@@ -69,9 +83,9 @@ class BatchNorm(nn.Module):
             return (x * inv.to(x.dtype).view(shape)
                     + shift.to(x.dtype).view(shape))
         xf = x.float()
-        mean, var = batch_moments(xf)
+        mean, var = batch_moments(xf, self.group)
         update_running(self, mean.detach(), var.detach(),
-                       x.shape[0] * x.shape[2] * x.shape[3])
+                       x.shape[0] * x.shape[2] * x.shape[3] * world_size(self.group))
         y = (xf - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
         y = y * self.weight.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)

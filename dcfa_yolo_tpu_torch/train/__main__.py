@@ -18,8 +18,21 @@ statistics, optimizer state, EMA and epoch.  `--compute-dtype float32` turns
 TF32 off for the process (cuDNN and matmuls); `bfloat16` turns it on.
 Step times are CUDA events around each step, read once an epoch.
 
-Flags of work not ported yet (`--device-aug*`, `--remat`, `--distributed`,
-`--pretrained`, `--model-dir`) are accepted and raise when set.
+`--distributed` trains data-parallel, one process a rank, launched by
+torchrun (the environment gives each its rank and the rendezvous, as the
+reference's DDP init reads it, `train_mul.py:115-127`):
+
+    torchrun --nproc-per-node N -m dcfa_yolo_tpu_torch.train --distributed ...
+
+NCCL and `cuda:LOCAL_RANK` on the card (a rank a card), gloo on the CPU.
+`--batch-size` is the global batch and must divide by the world; each rank
+loads its slice.  The step mode is the JAX Trainer's `auto` (`fused`, SyncBN
+and the global loss, on the card; `split`, local BN and averaged gradients,
+on the CPU with more than one rank).  Rank 0 alone prints, writes the logs
+and checkpoints and runs the mAP callback; the others wait for it.
+
+Flags of work not ported yet (`--device-aug*`, `--remat`, `--pretrained`,
+`--model-dir`) are accepted and raise when set.
 """
 
 from __future__ import annotations
@@ -43,7 +56,6 @@ _LEFT_OUT = {  # flag dest → (its default, the ROADMAP.md item that ports it)
     "device_aug_hbm_gb": (8.0, "queue 1, item 9"),
     "device_aug_dtype": ("bfloat16", "queue 1, item 9"),
     "remat": (False, "queue 1, item 8"),
-    "distributed": (False, "queue 1, item 10"),
 }
 _STEMS = {"auto": "auto", "pallas": "kernel", "xla": "plain"}
 
@@ -114,7 +126,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "graph, 'auto' = kernel C wherever it applies")
     p.add_argument("--profile-dir", default="",
                    help="write a torch.profiler trace of the first epoch here")
-    p.add_argument("--distributed", action="store_true", help="not ported yet")
+    p.add_argument("--distributed", action="store_true",
+                   help="data-parallel over a process group from the environment "
+                        "(torchrun): NCCL and cuda:LOCAL_RANK on the card, gloo on "
+                        "the CPU; --batch-size is the global batch")
     p.add_argument("--device", default="cuda",
                    help="torch device; the card unless 'cpu' is asked for")
     return p.parse_args(argv)
@@ -130,9 +145,37 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict:
             raise NotImplementedError(
                 f"--{dest.replace('_', '-')} is not ported yet (ROADMAP.md, {item})")
 
+    from dcfa_yolo_tpu_torch.device import resolve_device
+
+    device = resolve_device(args.device)
+    group, rank, world = None, 0, 1
+    if args.distributed:
+        import torch.distributed as dist
+
+        from dcfa_yolo_tpu_torch.parallel.mesh import init_process_group, rank_device
+
+        missing = [k for k in ("RANK", "WORLD_SIZE") if k not in os.environ]
+        if missing:
+            raise RuntimeError(f"--distributed needs {', '.join(missing)} in the "
+                               "environment: launch it with torchrun")
+        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        for flag in ("batch_size", "freeze_batch_size", "val_batch_size"):
+            if getattr(args, flag) % world:
+                raise ValueError(f"--{flag.replace('_', '-')} {getattr(args, flag)} "
+                                 f"does not divide over {world} ranks (it is the "
+                                 "global batch)")
+        device = rank_device(device)
+        group = init_process_group(device=device)
+    try:
+        return _train(args, device, group, rank, world)
+    finally:
+        if group is not None:
+            dist.destroy_process_group()
+
+
+def _train(args, device, group, rank: int, world: int) -> Dict:
     from dcfa_yolo_tpu_torch.config import ModelConfig, TrainConfig
     from dcfa_yolo_tpu_torch.data.loader import BatchLoader, PairedDetectionDataset
-    from dcfa_yolo_tpu_torch.device import resolve_device
     from dcfa_yolo_tpu_torch.infer.predictor import YOLOPredictor, get_classes
     from dcfa_yolo_tpu_torch.models.reparam import (apply_shuffle_spec, fold_opt_state,
                                                     shuffle_fold_spec)
@@ -145,7 +188,14 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict:
                                                       save_checkpoint)
     from dcfa_yolo_tpu_torch.utils.profiling import StepTimer, trace
 
-    device = resolve_device(args.device)
+    lead = rank == 0
+    say = print if lead else (lambda *a, **k: None)
+
+    def wait():
+        """The other ranks wait here while rank 0 writes or evaluates."""
+        if group is not None:
+            torch.distributed.barrier(group)
+
     # --compute-dtype float32 is IEEE float32 on the card: TF32 off for cuDNN
     # convolutions and matmuls (PyTorch lets cuDNN use TF32 by default), as
     # kernel C float32 and the CPU compute it; bfloat16 lets the float32 ops
@@ -174,7 +224,7 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict:
     model = DCFAYolo(cfg)
     resume = None
     if args.resume:
-        print(f"Resume from {args.resume}.")
+        say(f"Resume from {args.resume}.")
         resume = load_checkpoint(args.resume)
         model.load_state_dict({**resume["params"], **resume["batch_stats"]}, strict=True)
     else:
@@ -183,7 +233,7 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict:
         # over the init (`train.py:195-197`): a reference .pth / .npz imports
         # non-strictly (a single-modal `backbone.*` file fills both backbones,
         # the rest stays at init); a port or JAX checkpoint must be complete
-        print(f"Load weights {args.model_path}.")
+        say(f"Load weights {args.model_path}.")
         model.load_state_dict(load_variables(args.model_path, model.state_dict),
                               strict=True)
 
@@ -219,12 +269,14 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict:
     def make_loaders(bs: int):
         return (
             BatchLoader(train_ds, bs, tc.max_boxes, shuffle=True,
-                        num_workers=args.num_workers, seed=tc.seed),
+                        num_workers=args.num_workers, seed=tc.seed, rank=rank,
+                        world=world),
             # drop_last=False: a val set smaller than the batch still gives
             # one (padded) batch, so the val loss is never a silent 0.0
             BatchLoader(val_ds, args.val_batch_size or bs, tc.max_boxes,
                         shuffle=False, drop_last=False,
-                        num_workers=args.num_workers, seed=tc.seed),
+                        num_workers=args.num_workers, seed=tc.seed, rank=rank,
+                        world=world),
         )
 
     current_bs = phase_batch_size(tc.init_epoch)
@@ -234,7 +286,7 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict:
 
     time_str = datetime.datetime.now().strftime("%Y_%m_%d_%H_%M_%S")
     log_dir = os.path.join(tc.save_dir, "loss_" + time_str)
-    loss_history = LossHistory(log_dir)
+    loss_history = LossHistory(log_dir) if lead else None
 
     def predictor_factory(state_dict, conf, nms_iou, max_boxes):
         # the EMA weights of the graph being trained (folded under
@@ -247,7 +299,7 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict:
     eval_cb = EvalCallback(predictor_factory, class_names, val_lines, log_dir,
                            map_out_path=os.path.join(log_dir, ".temp_map_out"),
                            eval_flag=not args.no_eval, period=tc.eval_period,
-                           batch_size=args.eval_map_batch_size)
+                           batch_size=args.eval_map_batch_size) if lead else None
 
     init_epoch = tc.init_epoch
     if resume is not None:
@@ -257,7 +309,7 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict:
         ema_updates = epoch_step * init_epoch
 
     trainer = Trainer(model, tc, device=device, ema_updates=ema_updates,
-                      train_bifpn=not args.frozen_bifpn)
+                      train_bifpn=not args.frozen_bifpn, group=group)
     if resume is not None:
         params, ema, opt = resume["params"], resume["ema"], resume["opt_state"]
         if spec is not None:
@@ -266,7 +318,8 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict:
             ema = apply_shuffle_spec(ema, spec)
             opt = fold_opt_state(opt, spec)
         trainer.state = TrainState(params, resume["batch_stats"], opt, ema, ema_updates)
-    print(f"train stem: {trainer.train_stem} ({args.compute_dtype}, {device})")
+    say(f"train stem: {trainer.train_stem} ({args.compute_dtype}, {device})"
+        + (f"; {world} ranks, {trainer.step_mode} step" if group is not None else ""))
 
     init_lr_fit, min_lr_fit = tc.scaled_lrs()
     lr_fn = get_lr_scheduler(tc.lr_decay_type, init_lr_fit, min_lr_fit, tc.unfreeze_epoch)
@@ -278,7 +331,7 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict:
     for epoch in range(init_epoch, tc.unfreeze_epoch):
         if phase_batch_size(epoch) != current_bs:
             current_bs = phase_batch_size(epoch)
-            print(f"switching to batch size {current_bs} (unfreeze phase)")
+            say(f"switching to batch size {current_bs} (unfreeze phase)")
             train_loader, val_loader = make_loaders(current_bs)
             epoch_step = num_train // current_bs
             epoch_step_val = max(num_val // (args.val_batch_size or current_bs), 1)
@@ -294,7 +347,7 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict:
         fetch_wait = 0.0
         running: List[float] = []  # host reads of the loss, one per 50 steps
         epoch_t0 = time.perf_counter()
-        with trace(args.profile_dir if epoch == init_epoch else None, device):
+        with trace(args.profile_dir if epoch == init_epoch and lead else None, device):
             it_loader = iter(train_loader)
             for it in range(epoch_step):
                 t0 = time.perf_counter()
@@ -310,7 +363,7 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict:
                 step_losses.append(lb.total)
                 if it % 50 == 0:
                     running.append(float(lb.total))
-                    print(f"epoch {epoch + 1}/{tc.unfreeze_epoch} it {it}/{epoch_step} "
+                    say(f"epoch {epoch + 1}/{tc.unfreeze_epoch} it {it}/{epoch_step} "
                           f"loss {running[-1]:.3f} (run-mean {np.mean(running):.3f}) "
                           f"lr {lr:.5f}", flush=True)
             it_loader.close()
@@ -324,12 +377,12 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict:
             compute_rate = 1000.0 / timing["mean_ms"] if timing["mean_ms"] else 0.0
             starved = (f" (STARVED: waited {fetch_wait:.1f}s on data)"
                        if cap is not None and cap < compute_rate else "")
-            print(f"step timing: mean {timing['mean_ms']:.1f} ms p50 "
+            say(f"step timing: mean {timing['mean_ms']:.1f} ms p50 "
                   f"{timing['p50_ms']:.1f} p95 {timing['p95_ms']:.1f} over "
                   f"{timing['steps']} steps | step rate {step_rate:.2f}/s, loader "
                   f"capacity {cap_s}" + starved, flush=True)
         if train_loader.overflow_items:
-            print(f"[loader] {train_loader.overflow_items} items exceeded "
+            say(f"[loader] {train_loader.overflow_items} items exceeded "
                   f"max_boxes={tc.max_boxes}; {train_loader.overflow_dropped} "
                   f"smallest-area boxes dropped", flush=True)
         train_loss = float(torch.stack(step_losses).mean()) if step_losses else 0.0
@@ -344,12 +397,18 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict:
         it_val.close()
         val_loss = float(torch.stack(val_losses).mean()) if val_losses else 0.0
 
-        print(f"Epoch {epoch + 1}/{tc.unfreeze_epoch}  "
-              f"Total Loss: {train_loss:.3f} || Val Loss: {val_loss:.3f}")
+        say(f"Epoch {epoch + 1}/{tc.unfreeze_epoch}  "
+            f"Total Loss: {train_loss:.3f} || Val Loss: {val_loss:.3f}")
+        report["epochs"].append(dict(
+            epoch=epoch + 1, loss=train_loss, val_loss=val_loss, map=None,
+            steps=len(step_losses), timing=timing, loader_capacity=cap,
+            fetch_wait_s=fetch_wait))
+        if not lead:
+            wait()
+            continue
         loss_history.append_loss(epoch + 1, train_loss, val_loss)
-
         st = trainer.state
-        ap50 = eval_cb.on_epoch_end(epoch + 1, st.ema)
+        report["epochs"][-1]["map"] = ap50 = eval_cb.on_epoch_end(epoch + 1, st.ema)
         host = {"params": st.params, "batch_stats": st.batch_stats, "ema": st.ema,
                 "opt_state": st.opt_state}
         if spec is not None:
@@ -365,13 +424,10 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict:
                 f"val_loss{val_loss:.3f}.ckpt"), payload)
         if val_loss <= best_val:
             best_val = val_loss
-            print("Save best model to best_epoch_weights.ckpt")
+            say("Save best model to best_epoch_weights.ckpt")
             save_checkpoint(os.path.join(log_dir, "best_epoch_weights.ckpt"), payload)
         save_checkpoint(os.path.join(log_dir, "last_epoch_weights.ckpt"), payload)
-        report["epochs"].append(dict(
-            epoch=epoch + 1, loss=train_loss, val_loss=val_loss, map=ap50,
-            steps=len(step_losses), timing=timing, loader_capacity=cap,
-            fetch_wait_s=fetch_wait))
+        wait()
     return report
 
 

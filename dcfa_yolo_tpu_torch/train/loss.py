@@ -5,6 +5,12 @@ Ground truth arrives padded to (b, max_boxes) with a validity mask
 (`pad_targets` builds it on the host); masking replaces the reference's
 boolean indexing with the same numerics.  The feats are cast to float32
 first, and every term is computed in float32.
+
+With a process group (`YoloLoss(group=)`, data-parallel fused training)
+the normaliser `target_scores.sum()` is that of the global batch, as in the
+JAX fused program over a sharded batch (`loss.py:113`): the sum over the
+ranks, clamped to 1 after it.  Each rank's loss is then its part of the
+global loss, and the parts add up to it.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import torch.nn.functional as F
 from dcfa_yolo_tpu_torch.config import ModelConfig, TrainConfig
 from dcfa_yolo_tpu_torch.ops.boxes import (bbox2dist, bbox_iou, dist2bbox,
                                            make_anchors_np)
+from dcfa_yolo_tpu_torch.parallel.mesh import all_reduce_sum
 from dcfa_yolo_tpu_torch.train.assigner import TaskAlignedAssigner
 
 
@@ -53,11 +60,12 @@ def sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 class YoloLoss:
     """Criterion bound to a model config; anchors and strides live on
-    `device`."""
+    `device`.  `group`: normalise by the global batch's target scores."""
 
     def __init__(self, cfg: ModelConfig, train_cfg: TrainConfig = TrainConfig(),
-                 device="cpu"):
+                 device="cpu", group=None):
         self.cfg = cfg
+        self.group = group
         self.tc = train_cfg
         self.nc = cfg.num_classes
         self.reg_max = cfg.reg_max
@@ -100,7 +108,9 @@ class YoloLoss:
         target_bboxes = assign.target_bboxes / self.stride_tensor
         target_scores = assign.target_scores
         fg_mask = assign.fg_mask
-        target_scores_sum = torch.clamp_min(target_scores.sum(), 1.0)
+        # the assigner's outputs are detached: a plain sum over the ranks
+        target_scores_sum = torch.clamp_min(
+            all_reduce_sum(target_scores.sum(), self.group), 1.0)
 
         # BCE cls (`nets/yolo_training.py:420`)
         loss_cls = sigmoid_bce(pred_scores, target_scores).sum() / target_scores_sum

@@ -110,8 +110,9 @@ class Optimizer:
             g = [t.clone() for t in g]
         if cfg.weight_decay > 0:
             dec = [j for j, i in enumerate(live) if self.decay[i]]
-            torch._foreach_add_([g[j] for j in dec], [p[j] for j in dec],
-                                alpha=cfg.weight_decay)
+            # g + wd·p as two rounded ops (an `alpha=` add may fuse them)
+            torch._foreach_add_([g[j] for j in dec],
+                                torch._foreach_mul([p[j] for j in dec], cfg.weight_decay))
         if cfg.optimizer_type == "sgd":
             trace = [self.trace[i] for i in live]
             torch._foreach_mul_(trace, cfg.momentum)

@@ -247,6 +247,40 @@ def test_train_stem_f32_launches_on_two_streams_keep_their_weights(cuda):
                                        atol=1e-5 * c_max)
 
 
+def test_train_stem_kernel_across_two_gloo_ranks(cuda, tmp_path):
+    """Kernel C on 2 gloo ranks sharing this card, each on its half of a b4
+    batch, with the float64 sums all-reduced: the group's sums against one
+    launch on the whole batch and against the plain twin with the same
+    group (1e-4 relative, float32); the differentiable stem's y and moments
+    against the one-process call; one launch a rank."""
+    from dcfa_yolo_tpu_torch.ops import _build
+    from dcfa_yolo_tpu_torch.parallel import dryrun
+    from dcfa_yolo_tpu_torch.parallel.mesh import run_ranks
+
+    _build.load_library()  # the ranks only load it
+    rng = np.random.default_rng(12)
+    spec = dict(x=rng.random((4, 64, 130, 3), np.float32),
+                gy=rng.standard_normal((4, 32, 65, 16)).astype(np.float32),
+                kernel=(rng.standard_normal((16, 3, 3, 3)) * 0.3).astype(np.float32),
+                gamma=rng.standard_normal(16).astype(np.float32),
+                beta=(rng.standard_normal(16) * 0.1).astype(np.float32),
+                device="cuda:0", sums=True)
+    ranks = run_ranks(dryrun.stem_rank, 2, (spec,), backend="gloo", device="cuda",
+                      store_dir=str(tmp_path))
+    x = torch.from_numpy(spec["x"]).to(cuda)
+    k, g, b = (torch.from_numpy(spec[n]).to(cuda) for n in ("kernel", "gamma", "beta"))
+    sums = cuda_stem_train.stem_train(x, k)[2].cpu().numpy()
+    y, mean, var = (t.cpu().numpy() for t in cuda_stem_train.fused_train_stem(x, k, g, b, 1e-5))
+    for r in ranks:
+        assert r["launches"] == 1
+        for got in (r["sums"], r["plain_sums"]):
+            np.testing.assert_allclose(got, sums, rtol=1e-4, atol=1e-4 * np.abs(sums).max())
+        np.testing.assert_allclose(r["mean"], mean, rtol=1e-4)
+        np.testing.assert_allclose(r["var"], var, rtol=1e-4)
+    np.testing.assert_allclose(np.concatenate([r["y"] for r in ranks]), y, rtol=0,
+                               atol=1e-4 * np.abs(y).max())
+
+
 def _probe_inputs(cuda, b, h, w):
     """A random uint8 canvas with its zero border and fold_stem_params
     weights of a random stem, on the card."""

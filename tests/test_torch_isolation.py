@@ -104,7 +104,8 @@ def test_measurement_entry_points_raise_without_cuda(monkeypatch):
 def test_walk_covers_the_training_cli_modules():
     """The import probe above walks every module of the package, the host
     data path, the mAP harness, the utilities, the tools, the weight
-    importer and exporter and the training CLI's `__main__` included."""
+    importer and exporter, the training CLI's `__main__`, the flat tail and
+    the data-parallel modules included."""
     names = {m.name for m in pkgutil.walk_packages(dcfa_yolo_tpu_torch.__path__,
                                                    "dcfa_yolo_tpu_torch.")}
     for name in ("data.augment", "data.loader", "data.voc",
@@ -113,7 +114,8 @@ def test_walk_covers_the_training_cli_modules():
                  "tools.loader_bench",
                  "train.__main__", "predict", "get_map", "ops.consts",
                  "utils.golden", "models.torch_import", "models.torch_export",
-                 "tools.export"):
+                 "tools.export", "train.flat_opt", "parallel.mesh", "parallel.fused_check",
+                 "parallel.serve", "parallel.dryrun"):
         assert f"dcfa_yolo_tpu_torch.{name}" in names
 
 

@@ -207,7 +207,8 @@ def test_train_gemm_matches_jax_fused(monkeypatch, dtype):
     y_j = np.asarray(y_j.astype(jnp.float32))
     calls = []
     monkeypatch.setattr(cuda_stem_train, "stem_train",
-                        lambda *a: calls.append(1) or cuda_stem_train.stem_train_gemm(*a))
+                        lambda x, w, group=None: calls.append(1)
+                        or cuda_stem_train.stem_train_gemm(x, w))
     y, m, v = cuda_stem_train.fused_train_stem(
         torch.from_numpy(x).to(dtype), torch.from_numpy(k.transpose(3, 2, 0, 1).copy()),
         torch.from_numpy(gamma), torch.from_numpy(beta), EPS)

@@ -145,7 +145,7 @@ def test_step_timer_on_the_cpu():
 
 
 def test_left_out_flags_raise(dataset, tmp_path):
-    for extra in (["--remat"], ["--distributed"], ["--pretrained"], ["--device-aug"],
+    for extra in (["--remat"], ["--pretrained"], ["--device-aug"],
                   ["--device-aug-dtype", "float32"], ["--model-dir", "elsewhere"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             run(_args(dataset, tmp_path, *extra))
