@@ -4,9 +4,13 @@ Hopper GPU: builds the hand-written kernels from `dcfa_yolo_tpu_torch/csrc/`,
 holds each against its plain PyTorch version at its path's shapes, times it,
 then drives the paths of the port at phi='n' 640²: serving through
 `YOLOPredictor` in bf16 (kernels A and B), training through
-`Trainer.train_step` in bf16 (kernel C), the training CLI
-(`python -m dcfa_yolo_tpu_torch.train`, in-process) in float32 (kernel C's
-float32 instantiation, and kernel B in its mAP epoch), the stem split probe
+`Trainer.train_step` in bf16 (kernel C), backbone
+rematerialization (`--remat`: kernel C in the forward and in the
+backward's recompute), the training CLI (`python -m
+dcfa_yolo_tpu_torch.train`, in-process) in float32 (kernel C's float32
+instantiation, and kernel B in its mAP epoch; then `--device-aug --remat`),
+augmentation on the card from the staged dataset (`data/device_aug.py`,
+float32 against the CPU, bf16 against float32), the stem split probe
 (kernel A and its four variants, all on A's core), the deploy serving
 graph, the captured serving pipeline (`detect_batch_graph`, kernels A and
 B inside one CUDA graph a key, held bit-equal to the eager pipeline), the
@@ -667,23 +671,307 @@ def phase_train(dev):
     return launches
 
 
-def phase_train_cli(dev):
+def phase_remat(dev):
+    """Backbone rematerialization (`ModelConfig.remat`, `torch.utils.
+    checkpoint`) on the train path: phi='n' 640², [train]'s init (seed 0) and
+    optimizer, kernel C in both stems, one seeded b16 batch.  One step with
+    and one without remat from the same weights: in float32 with
+    deterministic cuDNN the loss terms, every gradient leaf and the BN
+    running statistics `torch.equal`; in bf16 at [train]'s limits (loss 2%,
+    stem conv-kernel gradient cosine ≥ 0.99), bit-equality reported.
+    Kernel C launches 4 times a step with remat (the forward and the
+    backward's recompute, both stems; the backward itself differentiates
+    the plain decomposition) and 2 without.  Then peak device memory and
+    step ms with and without remat in bf16 at b16 and b128, and at b64 if
+    b128 does not fit without remat.  Returns kernel C's launches by
+    entry."""
+    import gc
+
+    from dcfa_yolo_tpu_torch.config import ModelConfig, TrainConfig
+    from dcfa_yolo_tpu_torch.models.yolo import init_model
+    from dcfa_yolo_tpu_torch.ops import cuda_stem_train
+    from dcfa_yolo_tpu_torch.profile_train import synthetic_batch
+    from dcfa_yolo_tpu_torch.train.trainer import Trainer
+
+    tc = TrainConfig()
+    lr = tc.scaled_lrs()[0]
+    base = ModelConfig(num_classes=1, phi="n", input_shape=(640, 640),
+                       train_stem_backend="kernel")
+    host = synthetic_batch(16, (640, 640), tc.max_boxes, SEED + 140)
+    launches = {"stem_train": 0, "stem_train_f32": 0}
+
+    def trainer(dtype, remat):
+        t = Trainer(init_model(dataclasses.replace(base, compute_dtype=dtype, remat=remat),
+                               SEED, dev, train=True), tc, device=dev)
+        check(t.train_stem == "kernel", f"remat={remat} {dtype}: stem {t.train_stem!r}")
+        return t
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        cuda_stem_train.LAUNCHES = cuda_stem_train.LAUNCHES_F32 = 0
+        out = fn()
+        torch.cuda.synchronize()
+        n = cuda_stem_train.LAUNCHES
+        launches["stem_train"] += n - cuda_stem_train.LAUNCHES_F32
+        launches["stem_train_f32"] += cuda_stem_train.LAUNCHES_F32
+        return out, n
+
+    def one_step(dtype, remat):
+        t = trainer(dtype, remat)
+        b = t.put_batch(*host)
+        (lb, g), n = counted(lambda: t.step_with_grad(b, lr))
+        return dict(terms=torch.stack(list(lb)), grad=g, launches=n, named=list(t._named),
+                    stats={k: v.clone() for k, v in t.state.batch_stats.items()})
+
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        f32 = {r: one_step("float32", r) for r in (False, True)}
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    bf16 = {r: one_step("bfloat16", r) for r in (False, True)}
+    for dtype, runs in (("float32", f32), ("bfloat16", bf16)):
+        a, r = runs[False], runs[True]
+        same = dict(loss=torch.equal(a["terms"], r["terms"]),
+                    grad=torch.equal(a["grad"], r["grad"]),
+                    stats=all(torch.equal(v, r["stats"][k]) for k, v in a["stats"].items()))
+        leaves = leaf_cosines(grad_leaves(r["grad"].cpu().numpy(), a["named"]),
+                              grad_leaves(a["grad"].cpu().numpy(), a["named"]))
+        stem_cos = min(leaves[f"backbone_{m}.stem.conv.weight"][0] for m in ("rgb", "nir"))
+        loss_rel = abs(float(r["terms"][0] - a["terms"][0])) / abs(float(a["terms"][0]))
+        print(f"[remat] {dtype} b16 640², one step with vs without remat from the same "
+              f"weights: loss {float(r['terms'][0]):.6f} vs {float(a['terms'][0]):.6f} (rel "
+              f"{loss_rel:.3g}); torch.equal loss terms {same['loss']}, flat gradient "
+              f"{same['grad']}, BN running statistics {same['stats']}; stem conv cosine "
+              f"{stem_cos:.7f}; kernel C launches a step {r['launches']} with, "
+              f"{a['launches']} without" + ("; deterministic cuDNN" if dtype == "float32"
+                                            else ""))
+        check(r["launches"] == 4 and a["launches"] == 2,
+              f"[remat] {dtype}: kernel C launched {r['launches']} / {a['launches']} times a "
+              "step with / without remat, expected 4 / 2")
+        if dtype == "float32":
+            check(all(same.values()), f"[remat] float32 step with remat differs: {same}")
+        else:
+            check(loss_rel <= 0.02 and stem_cos >= 0.99,
+                  f"[remat] bf16 step with remat off [train]'s limits: loss rel "
+                  f"{loss_rel:.3g}, stem cosine {stem_cos:.7f}")
+    del f32, bf16
+
+    def measure(b, remat, steps=2):
+        """Peak memory (GiB) and median step ms (host clock, each step ending
+        in a synchronise) of bf16 steps at batch b, None if it does not fit."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t = trainer("bfloat16", remat)
+            bt = t.put_batch(*(np.concatenate([a] * (b // 16)) for a in host))
+            ms = []
+            for _ in range(steps + 1):
+                t0 = time.perf_counter()
+                counted(lambda: t.train_step(bt, lr))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return torch.cuda.max_memory_allocated() / 2**30, float(np.median(ms[1:]))
+        except torch.cuda.OutOfMemoryError:
+            return None
+
+    sizes = {}
+    for b in (16, 128):
+        sizes[b] = {r: measure(b, r) for r in (False, True)}
+    if sizes[128][False] is None:
+        sizes[64] = {r: measure(64, r) for r in (False, True)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    fmt = lambda m: ("does not fit (out of memory)" if m is None
+                     else f"peak {m[0]:.2f} GiB, {m[1]:.1f} ms/step")
+    for b, res in sizes.items():
+        print(f"[remat] bf16 b{b} 640²: without remat {fmt(res[False])}; with remat "
+              f"{fmt(res[True])} (peak torch.cuda.max_memory_allocated; median of 2 steps "
+              f"after one, host clock) | {CARD}")
+        check(res[True] is not None, f"[remat] b{b} does not fit even with remat")
+    return launches
+
+
+def train_data(n):
+    """`n` synthetic 480×360 PNG pairs (`tools/make_synth_dataset.py`) split
+    3:1 into train and val annotation files (`data/voc.py`): (directory,
+    classes file, train file, val file)."""
+    import tempfile
+
+    from dcfa_yolo_tpu_torch.data import voc
+    from dcfa_yolo_tpu_torch.tools.make_synth_dataset import make_dataset
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    make_dataset(tmp, n)
+    devkit = os.path.join(tmp, "VOCdevkit")
+    voc.generate_imagesets(devkit, trainval_percent=1.0, train_percent=0.75)
+    classes = os.path.join(tmp, "model_data", "voc_classes.txt")
+    voc.generate_annotation_files(devkit, classes, out_dir=tmp, image_ext=".png")
+    return (tmp, classes, os.path.join(tmp, "2007_train.txt"),
+            os.path.join(tmp, "2007_val.txt"))
+
+
+def read_lines(path):
+    with open(path) as f:
+        return [l.strip() for l in f if l.strip()]
+
+
+def aug_fixed_params(ds):
+    """Four fixed samples of `data/device_aug.py`'s program at 640²: a mosaic
+    with pre-flips and HSV gains, a post-flipped plain sample, a mixup with a
+    post-flipped partner, and a val letterbox."""
+    from dcfa_yolo_tpu_torch.data.device_aug import GeomParams, ParamSampler
+
+    p = GeomParams(idx=np.zeros((4, 5), np.int32), mode=np.zeros(4, np.float32),
+                   mix=np.zeros(4, np.float32), preflip=np.zeros((4, 5), np.float32),
+                   postflip=np.zeros((4, 5), np.float32), nw=np.ones((4, 5), np.float32),
+                   nh=np.ones((4, 5), np.float32), dx=np.full((4, 5), -4.0, np.float32),
+                   dy=np.full((4, 5), -4.0, np.float32), cut=np.zeros((4, 2), np.float32),
+                   hsv=np.ones((4, 3), np.float32))
+
+    def geom(row, slot, g):
+        p.nw[row, slot], p.nh[row, slot], p.dx[row, slot], p.dy[row, slot] = g
+
+    p.mode[0], p.cut[0], p.hsv[0] = 1.0, (301, 277), (1.06, 0.55, 1.3)
+    p.idx[0, :4], p.preflip[0, :4] = (3, 7, 11, 13), (1, 0, 1, 1)
+    for s, g in enumerate([(340, 300, -39, -23), (410, 450, -109, 277),
+                           (455, 402, 301, 277), (380, 330, 301, -53)]):
+        geom(0, s, g)
+    p.idx[1], p.postflip[1, 0] = 5, 1.0
+    geom(1, 0, (600, 470, 17, 60))
+    p.idx[2], p.idx[2, 4], p.mix[2], p.postflip[2, 4] = 9, 21, 1.0, 1.0
+    geom(2, 0, (520, 430, 40, 100))
+    geom(2, 4, (800, 700, -90, -50))
+    val = ParamSampler(ds, (640, 640), train=False).sample(
+        np.random.Generator(np.random.PCG64(0)), np.array([17]))
+    for f, v in zip(p, val):
+        f[3] = v[0]
+    return p
+
+
+def phase_device_aug(dev, data):
+    """Augmentation on the card (`data/device_aug.py`): the 32 synthetic
+    480×360 pairs of [train_cli] staged at 640², b16 parameters from
+    `ParamSampler` (epoch 0, the CLI's probabilities) and four fixed samples
+    (`aug_fixed_params`).
+      * float32 on the card against the same program on the CPU: pixels
+        within 2e-5 on the [0, 1] output, boxes, labels and masks equal;
+      * bf16 resampling against float32 on the card: boxes, labels and masks
+        bit-equal; pixels (in uint8 steps) reported, and held against the
+        same bf16 arithmetic through float32 GEMMs on the card (the same
+        products, other summation orders): mean within 0.01 of a step (a
+        bf16-rounded second contraction would add about 0.1);
+      * the JAX module's own figure's setting (`tools/bench_device_aug.py`'s
+        32 random tiles, mosaic and mixup on every sample, b16): bf16 against
+        float32 pixels p99 ≤ 0.3 of a step, and max ≤ 1.0 with the HSV gains
+        at 1 (the hue gain is discontinuous at red, where h·r mod 180 jumps:
+        a sub-step difference moves a pixel across it);
+    then `tools/bench_device_aug.py` on the staged pairs: the host loader's
+    float32 batch copy, the program in float32 and bf16, the augment +
+    train-step chain (b16, bf16 model)."""
+    from dcfa_yolo_tpu_torch.data import device_aug as da
+    from dcfa_yolo_tpu_torch.tools.bench_device_aug import random_staged
+    from dcfa_yolo_tpu_torch.tools.bench_device_aug import run as bench_aug
+
+    _, _, train_file, val_file = data
+    lines = read_lines(train_file) + read_lines(val_file)
+    t0 = time.perf_counter()
+    ds = da.stage_pairs(lines, (640, 640), 64)
+    stage_s = time.perf_counter() - t0
+    smp = da.ParamSampler(ds, (640, 640))
+    smp.set_epoch(0)
+    sampled = smp.sample(np.random.Generator(np.random.PCG64(SEED + 150)), np.arange(16))
+    print(f"[device_aug] {len(lines)} pairs staged at 640² in {stage_s:.2f} s "
+          f"({ds.images.nbytes / 1e6:.0f} MB); b16 sample: {int(sampled.mode.sum())} mosaic, "
+          f"{int(sampled.mix.sum())} mixup")
+    f32 = da.make_device_augment((640, 640), 64)
+    bf16 = da.make_device_augment((640, 640), 64, resample_dtype=torch.bfloat16)
+
+    def call(prog, staged, p, device):
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return [x.float().cpu() for x in prog(t(staged.images), t(staged.boxes),
+                                              t(staged.nbox), t(p.idx),
+                                              da.GeomParams(*(t(x) for x in p)))]
+
+    def lsb(a, b):
+        d = ((a - b).abs() * 255).numpy()
+        return float(np.percentile(d, 99)), float(d.max()), float(d.mean()), int((d > 1).sum())
+
+    boxes_equal = lambda a, b: all(torch.equal(x, y) for x, y in zip(a[2:], b[2:]))
+    for name, p in (("b16 sampled", sampled), ("fixed", aug_fixed_params(ds))):
+        card = call(f32, ds, p, dev)
+        cpu = call(f32, ds, p, "cpu")
+        err = max(float((a - b).abs().max()) for a, b in zip(card[:2], cpu[:2]))
+        check(all(bool(torch.isfinite(x).all()) for x in card), f"[device_aug] {name}: not finite")
+        print(f"[device_aug] {name}: float32 card vs CPU max {err:.3g} on [0, 1] (tol 2e-5); "
+              f"boxes, labels and masks equal {boxes_equal(card, cpu)}")
+        check(err <= 2e-5 and boxes_equal(card, cpu),
+              f"[device_aug] {name}: float32 card vs CPU pixels {err:.3g} (tol 2e-5), boxes "
+              f"equal {boxes_equal(card, cpu)}")
+        half = call(bf16, ds, p, dev)
+        with_f32_gemm = da._contract
+        da._contract = lambda a, b: torch.bmm(a.float(), b.float())
+        try:
+            emul = call(bf16, ds, p, dev)
+        finally:
+            da._contract = with_f32_gemm
+        vs32, vsem = (lsb(torch.cat(half[:2]), torch.cat(x[:2])) for x in (card, emul))
+        print(f"[device_aug] {name}: bf16 vs float32 (uint8 steps): p99 {vs32[0]:.4f} "
+              f"max {vs32[1]:.4f} mean {vs32[2]:.4f}, {vs32[3]} pixels above 1; boxes equal "
+              f"{boxes_equal(half, card)} | bf16 vs its arithmetic in float32 GEMMs: p99 "
+              f"{vsem[0]:.4f} max {vsem[1]:.4f} mean {vsem[2]:.5f} (tol 0.01)")
+        check(boxes_equal(half, card), f"[device_aug] {name}: bf16 boxes differ from float32")
+        check(vsem[2] <= 0.01, f"[device_aug] {name}: bf16 vs its float32-GEMM arithmetic "
+              f"mean {vsem[2]:.4f} steps")
+
+    rnd = random_staged(32, 640)
+    rsmp = da.ParamSampler(rnd, (640, 640), mosaic_prob=1.0, mixup_prob=1.0, epoch_length=100)
+    rsmp.set_epoch(0)
+    rp = rsmp.sample(np.random.Generator(np.random.PCG64(0)), np.arange(16))
+    out = {}
+    for gains in ("drawn", "identity"):
+        q = rp if gains == "drawn" else rp._replace(hsv=np.ones_like(rp.hsv))
+        a, b = call(f32, rnd, q, dev), call(bf16, rnd, q, dev)
+        out[gains] = lsb(torch.cat(b[:2]), torch.cat(a[:2]))
+        check(boxes_equal(a, b), f"[device_aug] random tiles, HSV {gains}: boxes differ")
+    print(f"[device_aug] random tiles (tools/bench_device_aug.py's), b16 mosaic + mixup, bf16 "
+          f"vs float32 (uint8 steps): HSV gains drawn p99 {out['drawn'][0]:.4f} (tol 0.3) max "
+          f"{out['drawn'][1]:.4f}; at 1 p99 {out['identity'][0]:.4f} max "
+          f"{out['identity'][1]:.4f} (tol 1.0); boxes equal")
+    check(out["drawn"][0] <= 0.3 and out["identity"][1] <= 1.0,
+          "[device_aug] bf16 resampling off the JAX figure's limits on random tiles")
+
+    res = bench_aug(annotation=train_file, batch_size=16, size=640, iters=10, device=dev)
+    print(f"[device_aug] bench (b16 640², {res['pairs']} train pairs, mosaic + mixup on every "
+          f"sample): host float32 batch copy {res['host_copy_ms']:.3f} ms "
+          f"({res['host_batch_mb']:.0f} MB, {res['host_copy_gb_per_s']:.2f} GB/s); program "
+          f"float32 {res['aug_ms']['float32']:.3f} ms, bf16 {res['aug_ms']['bfloat16']:.3f} ms "
+          f"a batch; augment + train step (bf16) {res['aug_train_step_ms']:.2f} ms = "
+          f"{res['aug_train_images_per_s']:.1f} images/s (CUDA events) | {CARD}")
+    print(json.dumps({"device_aug_bench": res}))
+    check(res["train_stem"] == "kernel", f"bench chain stem {res['train_stem']!r}")
+
+
+def phase_train_cli(dev, data):
     """The training CLI (`python -m dcfa_yolo_tpu_torch.train`) in-process
     at phi='n' 640² float32, full width, `--train-stem pallas`, fold-shuffle,
     mosaic and mixup on (the defaults), on a 32-pair synthetic dataset
-    (480×360 PNG pairs, 24 train / 8 val): 2 epochs with mAP at epoch 2,
-    then `--resume` from the last checkpoint for a third.  Launch counts are
-    read around each run; a checkpoint must load into the unfolded graph and
-    compute the folded EMA model's eval forward (tests/test_torch_model.py's
-    float32 tolerances)."""
+    (`train_data`: 480×360 PNG pairs, 24 train / 8 val): 2 epochs with mAP
+    at epoch 2, then `--resume` from the last checkpoint for a third.  Launch
+    counts are read around each run; a checkpoint must load into the
+    unfolded graph and compute the folded EMA model's eval forward
+    (tests/test_torch_model.py's float32 tolerances).  Then one epoch with
+    `--device-aug --remat` (mAP off): finite losses, 4 float32 kernel C
+    launches a step (the forward and the recompute), and no
+    `Trainer.put_batch` call; its step p50 beside the host loader's."""
     import tempfile
 
     from dcfa_yolo_tpu_torch.config import ModelConfig
-    from dcfa_yolo_tpu_torch.data import voc
     from dcfa_yolo_tpu_torch.models.yolo import DCFAYolo
     from dcfa_yolo_tpu_torch.ops import cuda_nms, cuda_stem, cuda_stem_train
-    from dcfa_yolo_tpu_torch.tools.make_synth_dataset import make_dataset
     from dcfa_yolo_tpu_torch.train.__main__ import run
+    from dcfa_yolo_tpu_torch.train.trainer import Trainer
     from dcfa_yolo_tpu_torch.utils.checkpoint import load_checkpoint, load_variables
 
     def reset():
@@ -696,9 +984,7 @@ def phase_train_cli(dev):
                 "stem_train": cuda_stem_train.LAUNCHES,
                 "stem_eval": cuda_stem.LAUNCHES, "nms_suppress": cuda_nms.LAUNCHES}
 
-    def lines(path):
-        with open(path) as f:
-            return [l.strip() for l in f if l.strip()]
+    lines = read_lines
 
     def tf32():
         return (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
@@ -706,20 +992,13 @@ def phase_train_cli(dev):
     # the CLI sets its own precision: start it from PyTorch's defaults, as a
     # fresh process would, not from this script's TF32-off setting
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    _, classes, train_file, val_file = data
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        make_dataset(tmp, 32)
-        devkit = os.path.join(tmp, "VOCdevkit")
-        voc.generate_imagesets(devkit, trainval_percent=1.0, train_percent=0.75)
-        classes = os.path.join(tmp, "model_data", "voc_classes.txt")
-        voc.generate_annotation_files(devkit, classes, out_dir=tmp, image_ext=".png")
-        n_train = len(lines(os.path.join(tmp, "2007_train.txt")))
-        n_val = len(lines(os.path.join(tmp, "2007_val.txt")))
+        n_train, n_val = len(lines(train_file)), len(lines(val_file))
         print(f"[train_cli] synthetic dataset: {n_train} train + {n_val} val pairs, "
-              f"480×360 PNG ({time.perf_counter() - t0:.1f} s)")
+              f"480×360 PNG")
         common = ["--classes-path", classes,
-                  "--train-annotation", os.path.join(tmp, "2007_train.txt"),
-                  "--val-annotation", os.path.join(tmp, "2007_val.txt"),
+                  "--train-annotation", train_file, "--val-annotation", val_file,
                   "--input-shape", "640", "640", "--phi", "n",
                   "--compute-dtype", "float32", "--train-stem", "pallas",
                   "--batch-size", "8", "--save-period", "1", "--eval-period", "2",
@@ -803,8 +1082,38 @@ def phase_train_cli(dev):
                   f"{errs[name]:.3g} (rtol {rtol:g}, atol {atol:g})")
         print("[train_cli] last checkpoint in the unfolded graph vs the folded EMA model, "
               "eval forward b2: max |Δ| " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
-        del r1, r2
-    return {"stem_train_f32": n1["stem_train_f32"] + n2["stem_train_f32"]}
+        del r1, r2, plain, folded, op, of
+
+        # one epoch with the dataset staged on the card and remat
+        puts = []
+        real_put = Trainer.put_batch
+        Trainer.put_batch = lambda self, *a: puts.append(1) or real_put(self, *a)
+        reset()
+        try:
+            t0 = time.perf_counter()
+            r3 = run(common + ["--unfreeze-epoch", "1", "--no-eval", "--device-aug",
+                               "--remat"])
+            wall3 = time.perf_counter() - t0
+        finally:
+            Trainer.put_batch = real_put
+        n3 = counts()
+        e3 = r3["epochs"][0]
+        host_p50 = [e["timing"]["p50_ms"] for e in epochs]
+        print(f"[train_cli] --device-aug --remat, epoch 1: {e3['steps']} steps, loss "
+              f"{e3['loss']:.4f}, val_loss {e3['val_loss']:.4f} | ms/step p50 "
+              f"{e3['timing']['p50_ms']:.2f} mean {e3['timing']['mean_ms']:.2f} (host loader "
+              f"runs, epochs 1-3: p50 {', '.join(f'{t:.2f}' for t in host_p50)}) | waited "
+              f"{e3['fetch_wait_s']:.2f} s on data | launches {n3}, put_batch calls "
+              f"{len(puts)}, {wall3:.1f} s | {CARD}")
+        check(np.isfinite([e3["loss"], e3["val_loss"]]).all(), "--device-aug CLI loss not finite")
+        check(e3["steps"] == n_train // 8 and n3["stem_train_f32"] == 4 * e3["steps"]
+              == n3["stem_train"], f"--device-aug --remat: expected 4 float32 kernel C "
+              f"launches a step over {n_train // 8} steps, got {n3} in {e3['steps']} steps")
+        check(not puts, f"--device-aug called Trainer.put_batch {len(puts)} times")
+        check(r3["trainer"].model.cfg.remat, "--remat did not reach the model")
+        del r3
+    return {"stem_train_f32": n1["stem_train_f32"] + n2["stem_train_f32"]
+            + n3["stem_train_f32"]}
 
 
 def phase_probe(dev):
@@ -1861,7 +2170,9 @@ def phase_dp(dev, model):
     the flat gradient (2,678,850 float32) and of C's 256-byte float64 sums
     on gloo and NCCL, kernels A, B and C at the local batch b4 held against
     their plain versions ([stem]'s and [train_stem_f32]'s limits) and timed
-    beside their bounds, and the spawn and set-up seconds."""
+    beside their bounds and library calls (A: [stem]'s cuDNN bf16 conv + max
+    pool + ReLU; C: [train_stem_f32]'s cuDNN float32 conv, both pools and
+    the sums), and the spawn and set-up seconds."""
     import tempfile
 
     import torch.distributed as dist
@@ -2095,6 +2406,7 @@ def phase_dp(dev, model):
                     2 * 4 * 640 * 640 * 16 * 27, H100_BF16_FLOPS)
     a_ms = device_ms(lambda: cuda_stem.stem_eval(canvas, w, bias), 50)
     a_plain = device_ms(lambda: cuda_stem.stem_eval_plain(canvas, w, bias), 10)
+    a_lib = device_ms(lambda: stem_library(canvas, w, bias), 50)
     bk, sk, ck = predict(model, r8[:4], n8[:4], stem="kernel")
     _, top_s, _, alive, off = _select_candidates(bk, sk, ck.to(torch.int32),
                                                  torch.tensor(0.001, device=dev), 1024)
@@ -2108,15 +2420,29 @@ def phase_dp(dev, model):
     _, c_res, _, c_sum_err, c_max = stem_train_held(xc4, kc, "[dp] b4 float32")
     c_ms = device_ms(lambda: cuda_stem_train.stem_train(xc4, kc), 20)
     c_plain = device_ms(lambda: cuda_stem_train.stem_train_plain(xc4, kc), 5)
+    check(not (torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32),
+          "[dp] TF32 is on for the float32 library call")
+
+    def c_library():
+        """C's function in cuDNN float32 (TF32 off): conv, both pools, the sums."""
+        import torch.nn.functional as F
+
+        c = F.conv2d(xc4.permute(0, 3, 1, 2), kc, padding=1)
+        return (F.max_pool2d(c, 3, 2, 1), -F.max_pool2d(-c, 3, 2, 1),
+                c.sum((0, 2, 3)), (c * c).sum((0, 2, 3)))
+
+    c_lib = device_ms(c_library, 20)
     c_group_ms = float(np.median([r["ms"] for r in stem_r]))
     print(f"[dp] local batch b4 against the plain versions: A bit-equal {a_frac:.6f}, max "
           f"err {a_err.max().item():.4g} ([stem]'s limits); B keep masks equal; C float32 "
           f"pools max err {max(c_res['pmax'][0], c_res['pmin'][0]):.4g} (max|ĉ| "
           f"{c_max:.4g}), sums rel {c_sum_err:.3g} ([train_stem_f32]'s limits)")
     print(f"[dp] local batch b4, one rank's launch: A {a_ms:.4f} ms (plain {a_plain:.4f}, "
-          f"bound {a_bound[0]:.5f}, {a_bound[1]}); B served b4 K=1024 {b_t['ms']:.4f} ms "
+          f"library(cuDNN bf16 conv+pool+relu) {a_lib:.4f}, bound {a_bound[0]:.5f}, "
+          f"{a_bound[1]}); B served b4 K=1024 {b_t['ms']:.4f} ms "
           f"(plain {b_t['plain_ms']:.2f}, bound {b_t['bound_ms']:.6f}, {b_t['bound_by']}); "
-          f"C float32 {c_ms:.4f} ms alone (plain {c_plain:.4f}, bound {c_bound[0]:.5f}, "
+          f"C float32 {c_ms:.4f} ms alone (plain {c_plain:.4f}, library(cuDNN float32 "
+          f"conv+both pools+sums, TF32 off) {c_lib:.4f}, bound {c_bound[0]:.5f}, "
           f"{c_bound[1]}), with its sums "
           f"all-reduced over the 2 gloo ranks {c_group_ms:.4f} ms (host clock, both ranks "
           f"on the card, the 256-byte all-reduce through the host) | {CARD}")
@@ -2210,7 +2536,15 @@ def main() -> int:
         train_stem_t = phase_train_stem(dev)
         train_stem_f32_t = phase_train_stem(dev, torch.float32)
         launches["stem_train"] = phase_train(dev)["stem_train"]
-        launches.update(phase_train_cli(dev))
+        remat_n = phase_remat(dev)
+        data = train_data(32)
+        try:
+            launches.update(phase_train_cli(dev, data))
+            phase_device_aug(dev, data)
+        finally:
+            shutil.rmtree(data[0], ignore_errors=True)
+        for name, n in remat_n.items():
+            launches[name] += n
         probe_t = phase_probe(dev)
         phase_deploy(dev)
         phase_graph(dev)

@@ -3,8 +3,8 @@
 and `TrainConfig` (`train_mul.py:22-110`).
 
 Kept are the fields the serving path, the train step and the training CLI
-read; `remat` and the data, eval and predict configs are not ported: no
-code of the port reads them.
+read; the data, eval and predict configs are not ported: no code of the
+port reads them.
 """
 
 from __future__ import annotations
@@ -36,6 +36,13 @@ class ModelConfig:
     # ops/cuda_stem_train.py::resolve_train_stem).  The parameter tree is
     # the same for both.
     train_stem_backend: str = "auto"
+    # Rematerialize the two backbones in training (`torch.utils.checkpoint`,
+    # the JAX package's `nn.remat`): the backward recomputes their
+    # full-resolution activations instead of keeping them, for the memory
+    # a large batch beside the device-staged dataset (data/device_aug.py)
+    # needs.  The same numbers, the same parameter tree, and each BN's
+    # running statistics move once a step (ops/norm.py::recomputing).
+    remat: bool = False
 
     @property
     def depth_mul(self) -> float:

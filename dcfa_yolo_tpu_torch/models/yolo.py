@@ -8,12 +8,14 @@ are permuted into NCHW views (channels_last strides, no copy).
 
 from __future__ import annotations
 
+import contextlib
 import zlib
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dcfa_yolo_tpu_torch.config import ModelConfig
 from dcfa_yolo_tpu_torch.device import resolve_device
@@ -26,7 +28,7 @@ from dcfa_yolo_tpu_torch.ops.boxes import make_anchors_np
 from dcfa_yolo_tpu_torch.ops.consts import device_const
 from dcfa_yolo_tpu_torch.ops.conv import Conv, ConvBnAct
 from dcfa_yolo_tpu_torch.ops.cuda_stem_train import resolve_train_stem
-from dcfa_yolo_tpu_torch.ops.norm import BatchNorm
+from dcfa_yolo_tpu_torch.ops.norm import BatchNorm, recomputing
 from dcfa_yolo_tpu_torch.ops.resize import resize_bilinear_align_corners
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -44,6 +46,12 @@ class YoloOutputs(NamedTuple):
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
+
+
+def _remat_contexts():
+    """`checkpoint`'s context_fn: the forward as it is, the recompute
+    without running-statistics updates."""
+    return contextlib.nullcontext(), recomputing()
 
 
 class DCFAYolo(nn.Module):
@@ -131,8 +139,8 @@ class DCFAYolo(nn.Module):
                 raise ValueError("pair_backbones is a serving-only graph")
             feats, feat3 = self._paired_feats(x_rgb, x_nir, s_rgb, s_nir)
         else:
-            f1r, f2r, f3r = self.backbone_rgb(x_rgb, s_rgb)
-            f1n, f2n, f3n = self.backbone_nir(x_nir, s_nir)
+            f1r, f2r, f3r = self._backbone(self.backbone_rgb, x_rgb, s_rgb)
+            f1n, f2n, f3n = self._backbone(self.backbone_nir, x_nir, s_nir)
             # per-level, per-modality CBAM before fusion (`nets/yolo_mul.py:346-353`)
             feats = ((self.cbam_rgb_feat1(f1r), self.cbam_nir_feat1(f1n)),
                      (self.cbam_rgb_feat2(f2r), self.cbam_nir_feat2(f2n)),
@@ -157,6 +165,18 @@ class DCFAYolo(nn.Module):
             cls = getattr(self, f"cv3_{i}_0")(p)
             clses.append(getattr(self, f"cv3_{i}_2")(getattr(self, f"cv3_{i}_1")(cls)))
         return boxes, clses, input_hw
+
+    def _backbone(self, backbone: Backbone, x, stem):
+        """One backbone; with `cfg.remat` in a train forward that records
+        gradients, rematerialized (JAX `yolo.py:138-142`): only its three
+        pyramid taps are kept for the backward, which runs it again.  The
+        non-reentrant form, since `Trainer.backward` takes
+        `torch.autograd.grad` over an explicit parameter list."""
+        if self.cfg.remat and self.training and torch.is_grad_enabled():
+            # the backbones draw no random numbers: no RNG state to replay
+            return checkpoint(backbone, x, stem, use_reentrant=False,
+                              context_fn=_remat_contexts, preserve_rng_state=False)
+        return backbone(x, stem)
 
     def _fuse(self, up: torch.Tensor, feat) -> torch.Tensor:
         """One BiFPN fusion of `up` with a level's features: its (rgb, nir)

@@ -18,12 +18,20 @@ With a process group (`BatchNorm.group`, the JAX module's `axis_name`,
 the ranks before the variance (SyncBN; equal local batches), and the Bessel
 factor counts the global n.  Without one nothing is reduced.
 
+Under `torch.utils.checkpoint` (`ModelConfig.remat`) the backward runs a
+train-mode forward a second time; inside `recomputing()` the running
+statistics do not move, so they take one momentum step a train step, as
+flax's `nn.remat` keeps (it drops the recomputed `batch_stats`).
+
 `nn.Module.train()` / `eval()` switch between the two.  Names follow
 `torch.nn.BatchNorm2d` (weight/bias/running_mean/running_var) so the flax
 tree maps onto it by renaming (`models/convert.py`).
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 from torch import nn
@@ -43,11 +51,31 @@ def batch_moments(xf: torch.Tensor, group=None):
     return mean, torch.clamp_min(mean2 - mean * mean, 0.0)
 
 
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """The context of a checkpointed forward's recompute (the second
+    context of `torch.utils.checkpoint`'s `context_fn`): `update_running`
+    does nothing inside it.  Per thread: the backward recomputes on the
+    autograd engine's thread."""
+    before = getattr(_RECOMPUTE, "on", False)
+    _RECOMPUTE.on = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on = before
+
+
 @torch.no_grad()
 def update_running(bn: "BatchNorm", mean: torch.Tensor, var: torch.Tensor,
                    n: int) -> None:
     """torch's running update with momentum `bn.momentum` and the Bessel
-    factor n/(n−1) on the variance (`ops/norm.py:68-73`)."""
+    factor n/(n−1) on the variance (`ops/norm.py:68-73`); none while a
+    checkpointed forward is recomputed (`recomputing`)."""
+    if getattr(_RECOMPUTE, "on", False):
+        return
     m = bn.momentum
     bessel = n / max(n - 1.0, 1.0)
     bn.running_mean.copy_((1.0 - m) * bn.running_mean + m * mean)

@@ -10,8 +10,9 @@ CUDA, gloo on the CPU).  Each runs one full-model train step at phi='n' 32²
 fused check (`parallel/fused_check.py`: the BN moments of the global
 batch), and prints one line per rank and mode.
 
-`train_rank` and `stem_rank` are what a rank runs; chip_smoke.py and the
-tests spawn them through `run_ranks` with the inputs they compare.
+`train_rank`, `stem_rank` and `aug_rank` are what a rank runs;
+chip_smoke.py and the tests spawn them through `run_ranks` with the inputs
+they compare.
 """
 
 from __future__ import annotations
@@ -140,6 +141,25 @@ def stem_rank(rank: int, world: int, group, spec: Dict) -> Dict:
     if spec.get("time_iters"):
         out["ms"] = _host_ms(lambda: cuda_stem_train.stem_train(xk, w, group),
                              spec["time_iters"], dev)
+    return out
+
+
+def aug_rank(rank: int, world: int, group, spec: Dict) -> List[Dict[str, np.ndarray]]:
+    """This rank's batches of `data/device_aug.py::DeviceAugLoader` over
+    `spec["epochs"]` epochs: the staged arrays `spec["staged"]` (images,
+    boxes, nbox, orig_wh), `input_shape`, the global `batch_size`, and
+    optionally `loader` (more DeviceAugLoader arguments) and `device`.  Each
+    batch as numpy arrays by Batch field."""
+    from dcfa_yolo_tpu_torch.data.device_aug import DeviceAugLoader, StagedDataset
+
+    ds = StagedDataset(*spec["staged"])
+    ld = DeviceAugLoader(["staged"] * len(ds.images), spec["input_shape"], spec["batch_size"],
+                         staged=ds, device=spec.get("device", "cpu"), rank=rank,
+                         world=world, **spec.get("loader", {}))
+    out = []
+    for epoch in range(spec["epochs"]):
+        ld.set_epoch(epoch)
+        out += [{k: v.float().cpu().numpy() for k, v in b._asdict().items()} for b in ld]
     return out
 
 

@@ -31,8 +31,18 @@ and the global loss, on the card; `split`, local BN and averaged gradients,
 on the CPU with more than one rank).  Rank 0 alone prints, writes the logs
 and checkpoints and runs the mAP callback; the others wait for it.
 
-Flags of work not ported yet (`--device-aug*`, `--remat`, `--pretrained`,
-`--model-dir`) are accepted and raise when set.
+`--remat` rematerializes the backbones in the backward
+(`ModelConfig.remat`, `torch.utils.checkpoint`): the same numbers for less
+activation memory.  `--device-aug` stages the decoded train and val sets
+in device memory once (`--device-aug-stage` H W, within
+`--device-aug-hbm-gb`) and augments on the card (`data/device_aug.py`):
+the loop takes device batches, no host copy a step.  `--device-aug-dtype`
+is the resampling dtype; on the CPU it resamples in float32, as the JAX
+CLI does.  Under `--distributed` each rank stages the whole set and
+augments its slice of the global batch.
+
+`--pretrained` and `--model-dir` wait for the pretrained backbone weights
+file in the repository; they are accepted and raise when set.
 """
 
 from __future__ import annotations
@@ -51,11 +61,6 @@ _LEFT_OUT = {  # flag dest → (its default, the ROADMAP.md item that ports it)
     "pretrained": (False, "queue 1, item 8 (it waits for the pretrained "
                           "backbone weights file in the repository)"),
     "model_dir": ("model_data", "queue 1, item 8 (with --pretrained)"),
-    "device_aug": (False, "queue 1, item 9"),
-    "device_aug_stage": (None, "queue 1, item 9"),
-    "device_aug_hbm_gb": (8.0, "queue 1, item 9"),
-    "device_aug_dtype": ("bfloat16", "queue 1, item 9"),
-    "remat": (False, "queue 1, item 8"),
 }
 _STEMS = {"auto": "auto", "pallas": "kernel", "xla": "plain"}
 
@@ -107,12 +112,22 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--no-eval", action="store_true")
     p.add_argument("--save-dir", default="logs")
     p.add_argument("--num-workers", type=int, default=4)
-    p.add_argument("--device-aug", action="store_true", help="not ported yet")
+    p.add_argument("--device-aug", action="store_true",
+                   help="stage the decoded dataset in device memory once and run "
+                        "all augmentation (mosaic, jitter, flip, HSV, mixup and the "
+                        "box transforms) on the card; a step sends a few KB of "
+                        "geometry, not a float32 batch (data/device_aug.py)")
     p.add_argument("--device-aug-stage", type=int, nargs=2, default=None,
-                   metavar=("H", "W"), help="not ported yet")
-    p.add_argument("--device-aug-hbm-gb", type=float, default=8.0, help="not ported yet")
+                   metavar=("H", "W"),
+                   help="staging resolution for --device-aug (default: the input "
+                        "shape); lower it to fit a large dataset")
+    p.add_argument("--device-aug-hbm-gb", type=float, default=8.0,
+                   help="device memory budget of the staged train and val sets, GB")
     p.add_argument("--device-aug-dtype", default="bfloat16",
-                   choices=["float32", "bfloat16"], help="not ported yet")
+                   choices=["float32", "bfloat16"],
+                   help="operand dtype of --device-aug's resampling contractions: "
+                        "bf16 operands with float32 results, box geometry unchanged "
+                        "(float32 on the CPU)")
     p.add_argument("--seed", type=int, default=11)
     p.add_argument("--compute-dtype", default="bfloat16",
                    choices=["float32", "bfloat16"])
@@ -120,7 +135,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    default=True,
                    help="train with the backbones' channel shuffles folded into "
                         "their consumers' weights (checkpoints stay unfolded)")
-    p.add_argument("--remat", action="store_true", help="not ported yet")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize the backbones in the backward "
+                        "(torch.utils.checkpoint): extra compute for the activation "
+                        "memory a large batch beside the --device-aug staged set needs")
     p.add_argument("--train-stem", default="auto", choices=list(_STEMS),
                    help="train stem: 'pallas' = kernel C, 'xla' = the plain "
                         "graph, 'auto' = kernel C wherever it applies")
@@ -207,7 +225,7 @@ def _train(args, device, group, rank: int, world: int) -> Dict:
     cfg = ModelConfig(num_classes=num_classes, phi=args.phi,
                       input_shape=tuple(args.input_shape),
                       compute_dtype=args.compute_dtype,
-                      train_stem_backend=_STEMS[args.train_stem])
+                      train_stem_backend=_STEMS[args.train_stem], remat=args.remat)
     tc = TrainConfig(
         seed=args.seed, init_epoch=args.init_epoch, freeze_epoch=args.freeze_epoch,
         unfreeze_epoch=args.unfreeze_epoch, freeze_train=args.freeze_train,
@@ -266,18 +284,66 @@ def _train(args, device, group, rank: int, world: int) -> Dict:
     val_ds = PairedDetectionDataset(val_lines, cfg.input_shape, train=False,
                                     mosaic=False, mixup=False)
 
-    def make_loaders(bs: int):
-        return (
-            BatchLoader(train_ds, bs, tc.max_boxes, shuffle=True,
-                        num_workers=args.num_workers, seed=tc.seed, rank=rank,
-                        world=world),
-            # drop_last=False: a val set smaller than the batch still gives
-            # one (padded) batch, so the val loss is never a silent 0.0
-            BatchLoader(val_ds, args.val_batch_size or bs, tc.max_boxes,
-                        shuffle=False, drop_last=False,
-                        num_workers=args.num_workers, seed=tc.seed, rank=rank,
-                        world=world),
-        )
+    if args.device_aug:
+        from dcfa_yolo_tpu_torch.data.device_aug import DeviceAugLoader
+        from dcfa_yolo_tpu_torch.models.yolo import _DTYPES
+
+        stage_hw = tuple(args.device_aug_stage or cfg.input_shape)
+        staged_cache: Dict = {}  # staged arrays and device copies, across batch sizes
+        # the CPU resamples in float32, as the JAX CLI's rule (`train.py:270-273`)
+        rdt = (torch.bfloat16 if args.device_aug_dtype == "bfloat16"
+               and device.type != "cpu" else None)
+        odt = _DTYPES[cfg.compute_dtype]
+
+        def make_loaders(bs: int):
+            t0 = time.perf_counter()
+            common = dict(max_boxes=tc.max_boxes, stage_hw=stage_hw, seed=tc.seed,
+                          out_dtype=odt, device=device, rank=rank, world=world)
+            tl = DeviceAugLoader(
+                train_lines, cfg.input_shape, bs, train=True, mosaic=tc.mosaic,
+                mosaic_prob=tc.mosaic_prob, mixup=tc.mixup, mixup_prob=tc.mixup_prob,
+                special_aug_ratio=tc.special_aug_ratio, epoch_length=tc.unfreeze_epoch,
+                shuffle=True, max_hbm_gb=args.device_aug_hbm_gb, resample_dtype=rdt,
+                staged=staged_cache.get("train"), dev_data=staged_cache.get("train_dev"),
+                **common)
+            vl = DeviceAugLoader(
+                val_lines, cfg.input_shape, args.val_batch_size or bs, train=False,
+                shuffle=False,
+                # keep the ragged tail (padded): a val set smaller than the
+                # batch still gives one batch
+                drop_last=False,
+                # the budget is for both staged sets: charge the train set's
+                max_hbm_gb=args.device_aug_hbm_gb - tl.host_ds.images.nbytes / 1e9,
+                staged=staged_cache.get("val"), dev_data=staged_cache.get("val_dev"),
+                **common)
+            if "train" not in staged_cache:
+                say(f"[device-aug] staged {num_train}+{num_val} pairs at {stage_hw} "
+                    f"into {device} memory in {time.perf_counter() - t0:.1f}s "
+                    f"({(tl.host_ds.images.nbytes + vl.host_ds.images.nbytes) / 1e6:.0f} "
+                    "MB)", flush=True)
+            staged_cache.update(
+                train=tl.host_ds, val=vl.host_ds,
+                train_dev=(tl.dev_images, tl.dev_boxes, tl.dev_nbox),
+                val_dev=(vl.dev_images, vl.dev_boxes, vl.dev_nbox))
+            return tl, vl
+    else:
+        def make_loaders(bs: int):
+            return (
+                BatchLoader(train_ds, bs, tc.max_boxes, shuffle=True,
+                            num_workers=args.num_workers, seed=tc.seed, rank=rank,
+                            world=world),
+                # drop_last=False: a val set smaller than the batch still gives
+                # one (padded) batch, so the val loss is never a silent 0.0
+                BatchLoader(val_ds, args.val_batch_size or bs, tc.max_boxes,
+                            shuffle=False, drop_last=False,
+                            num_workers=args.num_workers, seed=tc.seed, rank=rank,
+                            world=world),
+            )
+
+    def device_batch(hb):
+        """A loader's batch on the device: --device-aug's already is."""
+        return hb if args.device_aug else trainer.put_batch(
+            hb.rgb, hb.nir, hb.gt_boxes, hb.gt_labels, hb.gt_mask)
 
     current_bs = phase_batch_size(tc.init_epoch)
     train_loader, val_loader = make_loaders(current_bs)
@@ -355,8 +421,7 @@ def _train(args, device, group, rank: int, world: int) -> Dict:
                 fetch_wait += time.perf_counter() - t0
                 if hb is None:
                     break
-                batch = trainer.put_batch(hb.rgb, hb.nir, hb.gt_boxes, hb.gt_labels,
-                                          hb.gt_mask)
+                batch = device_batch(hb)
                 timer.start()
                 lb = trainer.train_step(batch, lr, freeze_backbone=freeze)
                 timer.stop()
@@ -392,8 +457,7 @@ def _train(args, device, group, rank: int, world: int) -> Dict:
         for it, hb in enumerate(it_val):
             if it >= epoch_step_val:
                 break
-            val_losses.append(trainer.eval_step(trainer.put_batch(
-                hb.rgb, hb.nir, hb.gt_boxes, hb.gt_labels, hb.gt_mask)).total)
+            val_losses.append(trainer.eval_step(device_batch(hb)).total)
         it_val.close()
         val_loss = float(torch.stack(val_losses).mean()) if val_losses else 0.0
 

@@ -575,3 +575,63 @@ def test_variant_graph_replay_equals_eager(cuda, variant, input_shape):
         maps = heatmap_batch_graph(model, *x1[:2])
         assert all(torch.equal(a, e) for a, e in zip(maps, heatmap_batch(model, *x1[:2])))
     release_graphs(model)
+
+
+def test_remat_step_launches_kernel_c_in_the_recompute(cuda):
+    """A float32 step at 64² with remat: kernel C launches 4 times (both
+    stems, forward and recompute) against 2 without, and the step is
+    `torch.equal` to the one without (deterministic cuDNN)."""
+    import dataclasses
+
+    from dcfa_yolo_tpu_torch.config import ModelConfig, TrainConfig
+    from dcfa_yolo_tpu_torch.models.yolo import init_model
+    from dcfa_yolo_tpu_torch.parallel.dryrun import dry_batch
+    from dcfa_yolo_tpu_torch.train.trainer import Trainer
+
+    cfg = ModelConfig(num_classes=1, phi="n", input_shape=(64, 64), train_stem_backend="kernel")
+    out = []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (False, True):
+            tr = Trainer(init_model(dataclasses.replace(cfg, remat=remat), 0, cuda, train=True),
+                         TrainConfig(max_boxes=4), device=cuda)
+            b = tr.put_batch(*dry_batch(4, (64, 64)))
+            before = cuda_stem_train.LAUNCHES
+            lb, g = tr.step_with_grad(b, 1e-2)
+            torch.cuda.synchronize()
+            out.append((cuda_stem_train.LAUNCHES - before, lb.total, g, tr.flat_state.flat_stats))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (n0, l0, g0, s0), (n1, l1, g1, s1) = out
+    assert (n0, n1) == (2, 4)
+    assert torch.equal(l0, l1) and torch.equal(g0, g1) and torch.equal(s0, s1)
+
+
+@pytest.mark.parametrize("rdt", [torch.float32, torch.bfloat16])
+def test_device_aug_on_the_card_matches_the_cpu(cuda, rdt):
+    """The augmentation program on the card against the same program on the
+    CPU (float32: pixels within 2e-5; bf16 on the card against bf16 operands
+    in a float32 GEMM on the CPU: mean within 0.01 of a uint8 step), boxes,
+    labels and masks equal."""
+    from dcfa_yolo_tpu_torch.data import device_aug as da
+    from dcfa_yolo_tpu_torch.tools.bench_device_aug import random_staged
+
+    ds = random_staged(8, 96, max_boxes=8)
+    smp = da.ParamSampler(ds, (128, 112), mosaic_prob=1.0, mixup_prob=0.5, epoch_length=10)
+    smp.set_epoch(0)
+    p = smp.sample(np.random.Generator(np.random.PCG64(1)), np.arange(4))
+    prog = da.make_device_augment((128, 112), 8, resample_dtype=rdt)
+
+    def call(device):
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return [x.float().cpu() for x in prog(t(ds.images), t(ds.boxes), t(ds.nbox), t(p.idx),
+                                              da.GeomParams(*(t(x) for x in p)))]
+
+    card, cpu = call(cuda), call("cpu")
+    for a, b in zip(card[2:], cpu[2:]):
+        assert torch.equal(a, b)
+    d = torch.cat([(a - b).abs() for a, b in zip(card[:2], cpu[:2])])
+    if rdt == torch.float32:
+        assert float(d.max()) <= 2e-5
+    else:
+        assert float(d.mean()) * 255 <= 0.01

@@ -10,9 +10,11 @@ and jitter HSV with cv2.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import os
 import random
+import runpy
 from pathlib import Path
 
 import numpy as np
@@ -280,3 +282,45 @@ def test_loader_bench_reports_each_epoch():
     assert [e["batches"] for e in out["epochs"]] == [3, 3]
     assert all(e["wall_batches_per_s"] > 0 and e["capacity_batches_per_s"] > 0
                for e in out["epochs"])
+
+
+def _written(cwd: Path, devkit: Path):
+    """The files a voc_annotation run writes: the splits and the annotation
+    files, by name."""
+    sets = devkit / "VOC2007" / "ImageSets" / "Main"
+    return {**{"ImageSets/" + p.name: p.read_bytes() for p in sets.glob("*.txt")},
+            **{p.name: p.read_bytes() for p in cwd.glob("2007_*.txt")}}
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_voc_annotation_cli_writes_the_root_cli_files(tmp_path, monkeypatch, mode):
+    """`python -m dcfa_yolo_tpu_torch.voc_annotation` against the root
+    `voc_annotation.py` on one synthetic devkit: byte-equal files."""
+    from dcfa_yolo_tpu_torch import voc_annotation
+    from dcfa_yolo_tpu_torch.tools.make_synth_dataset import make_dataset
+
+    make_dataset(str(tmp_path / "data"), 5, (160, 120))
+    devkit = tmp_path / "data" / "VOCdevkit"
+    classes = str(tmp_path / "data" / "model_data" / "voc_classes.txt")
+    argv = ["--annotation-mode", str(mode), "--vocdevkit-path", str(devkit),
+            "--classes-path", classes, "--trainval-percent", "0.8"]
+    if mode == 2:  # the annotation files read the splits of a mode-1 run
+        voc.generate_imagesets(str(devkit), 0.8, 0.9, 0)
+    out = {}
+    for name in ("root", "port"):
+        cwd = tmp_path / name
+        cwd.mkdir()
+        monkeypatch.chdir(cwd)
+        for f in devkit.rglob("ImageSets/Main/*.txt"):
+            if mode != 2:
+                f.unlink()
+        if name == "root":
+            monkeypatch.setattr("sys.argv", ["voc_annotation.py", *argv])
+            with contextlib.redirect_stdout(None):
+                runpy.run_path(str(REPO / "voc_annotation.py"), run_name="__main__")
+        else:
+            assert voc_annotation.main(argv) == 0
+        out[name] = _written(cwd, devkit)
+    assert out["port"] == out["root"]
+    want = {0: 6, 1: 4, 2: 6}[mode]  # mode 2 reads the splits and writes 2 files
+    assert len(out["port"]) == want and all(out["port"].values())
