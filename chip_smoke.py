@@ -8,7 +8,8 @@ then drives the paths of the port at phi='n' 640²: serving through
 rematerialization (`--remat`: kernel C in the forward and in the
 backward's recompute), the training CLI (`python -m
 dcfa_yolo_tpu_torch.train`, in-process) in float32 (kernel C's float32
-instantiation, and kernel B in its mAP epoch; then `--device-aug --remat`),
+instantiation, and kernel B in its mAP epoch; then `--device-aug --remat`,
+then `--pretrained` from a synthesized backbone file),
 augmentation on the card from the staged dataset (`data/device_aug.py`,
 float32 against the CPU, bf16 against float32), the stem split probe
 (kernel A and its four variants, all on A's core), the deploy serving
@@ -1112,8 +1113,88 @@ def phase_train_cli(dev, data):
         check(not puts, f"--device-aug called Trainer.put_batch {len(puts)} times")
         check(r3["trainer"].model.cfg.remat, "--remat did not reach the model")
         del r3
+        n4 = train_cli_pretrained(common, tmp, n_train, epochs, reset, counts)
     return {"stem_train_f32": n1["stem_train_f32"] + n2["stem_train_f32"]
-            + n3["stem_train_f32"]}
+            + n3["stem_train_f32"] + n4["stem_train_f32"]}
+
+
+def train_cli_pretrained(common, tmp, n_train, host_epochs, reset, counts):
+    """[pretrained]: the training CLI with `--pretrained --model-dir D` on
+    [train_cli]'s dataset and arguments, one epoch, mAP off.  D holds a
+    phi-n backbone file synthesized from the golden manifest (its
+    `backbone_rgb.*` entries, unprefixed, `torch.save`d as the reference's
+    release file).  The weights the trainer holds when its first step
+    starts (read by a hook on `Trainer.train_step`, unfolded from the
+    `--fold-shuffle` space) must have both backbones equal to the file bit
+    for bit and the head's BN scales exactly 1.0 (the JAX model's initial
+    state); the losses finite; 2 float32 kernel C launches a step."""
+    from dcfa_yolo_tpu_torch.models.reparam import unfold_shuffle_state_dict
+    from dcfa_yolo_tpu_torch.models.torch_import import reference_key_to_port
+    from dcfa_yolo_tpu_torch.train.__main__ import run
+    from dcfa_yolo_tpu_torch.train.trainer import Trainer
+    from dcfa_yolo_tpu_torch.utils import golden
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    manifest = golden.load_manifest(os.path.join(here, "tests", "goldens", "manifest.json"))
+    bb = {k[len("backbone_rgb."):]: torch.from_numpy(np.ascontiguousarray(v))
+          for k, v in golden.synth_state_dict(manifest, SEED).items()
+          if k.startswith("backbone_rgb.")}
+    model_dir = os.path.join(tmp, "pretrained")
+    os.makedirs(model_dir)
+    torch.save(bb, os.path.join(model_dir, "yolov8_n_backbone_weights.pth"))
+
+    seen = []
+    real_step = Trainer.train_step
+
+    def first_step(self, *a, **k):
+        if not seen:
+            st = self.state
+            sd = {n: t.detach().cpu().clone()
+                  for n, t in {**st.params, **st.batch_stats}.items()}
+            seen.append(unfold_shuffle_state_dict(sd) if self.model.fold_shuffle else sd)
+        return real_step(self, *a, **k)
+
+    Trainer.train_step = first_step
+    try:
+        reset()
+        t0 = time.perf_counter()
+        r = run(common + ["--unfreeze-epoch", "1", "--no-eval", "--pretrained",
+                          "--model-dir", model_dir])
+        wall = time.perf_counter() - t0
+    finally:
+        Trainer.train_step = real_step
+    n = counts()
+    (e,) = r["epochs"]
+    init = r["init"]
+    check(len(seen) == 1, "--pretrained: the first-step hook did not run")
+    (initial,) = seen
+    unequal = [(branch, k) for k, v in bb.items() if not k.endswith("num_batches_tracked")
+               for branch in ("backbone_rgb", "backbone_nir")
+               if not torch.equal(initial[reference_key_to_port(f"{branch}.{k}")], v.float())]
+    head_scales = [k for k, v in initial.items() if not k.startswith("backbone_")
+                   and k.endswith(".bn.weight")]
+    not_one = [k for k in head_scales if not bool((initial[k] == 1.0).all())]
+    caps = [h["loader_capacity"] for h in host_epochs]
+    print(f"[pretrained] {init['path'].rsplit(os.sep, 1)[-1]} ({len(bb)} keys): "
+          f"{len(init['matched'])} tensors into both branches, {len(init['skipped'])} "
+          f"skipped; the trainer's backbones at step 1 bit-equal to the file: "
+          f"{not unequal}; {len(head_scales)} head BN scales exactly 1.0: {not not_one}")
+    print(f"[pretrained] epoch 1: {e['steps']} steps, loss {e['loss']:.4f}, val_loss "
+          f"{e['val_loss']:.4f} | launches {n}, {wall:.1f} s | loader capacity "
+          f"{e['loader_capacity']:.3f} batches/s (epochs 1-3 above: "
+          f"{', '.join(f'{c:.3f}' for c in caps)}), waited {e['fetch_wait_s']:.2f} s on data "
+          f"| {CARD}")
+    check(init["source"] == "pretrained" and len(init["matched"]) == 2 * sum(
+        not k.endswith("num_batches_tracked") for k in bb),
+          f"--pretrained imported {len(init['matched'])} tensors from {len(bb)} keys")
+    check(not unequal, f"backbones differ from the file at step 1: {unequal[:4]}")
+    check(head_scales and not not_one, f"head BN scales not at 1.0: {not_one[:4]}")
+    check(np.isfinite([e["loss"], e["val_loss"]]).all(), "--pretrained CLI loss not finite")
+    check(e["steps"] == n_train // 8 and n["stem_train_f32"] == 2 * e["steps"]
+          == n["stem_train"], f"--pretrained: expected 2 float32 kernel C launches a step "
+          f"over {n_train // 8} steps, got {n} in {e['steps']} steps")
+    del r
+    return n
 
 
 def phase_probe(dev):

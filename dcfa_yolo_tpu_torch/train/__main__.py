@@ -41,8 +41,14 @@ is the resampling dtype; on the CPU it resamples in float32, as the JAX
 CLI does.  Under `--distributed` each rank stages the whole set and
 augments its slice of the global batch.
 
-`--pretrained` and `--model-dir` wait for the pretrained backbone weights
-file in the repository; they are accepted and raise when set.
+The initial weights are `train.py`'s, one source of four
+(`load_initial_weights`): `--resume`; else `--model-path` loaded over the
+JAX model's initial state (`init_weights.py::flax_default_init`); else
+`--pretrained`, the reference's backbone file
+`{--model-dir}/yolov8_{phi}_backbone_weights.pth` (never downloaded:
+`utils/general.py::download_weights` raises naming its URL when it is
+missing) imported into both backbones over that same state; else the
+reference's `weights_init` (`--init-type`).
 """
 
 from __future__ import annotations
@@ -57,11 +63,6 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-_LEFT_OUT = {  # flag dest → (its default, the ROADMAP.md item that ports it)
-    "pretrained": (False, "queue 1, item 8 (it waits for the pretrained "
-                          "backbone weights file in the repository)"),
-    "model_dir": ("model_data", "queue 1, item 8 (with --pretrained)"),
-}
 _STEMS = {"auto": "auto", "pallas": "kernel", "xla": "plain"}
 
 
@@ -74,8 +75,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="weights to start from, loaded over the init: a port or "
                         "JAX .ckpt (EMA weights first) or the reference's .pth / .npz "
                         "(a single-modal backbone.* file fills both backbones)")
-    p.add_argument("--pretrained", action="store_true", help="not ported yet")
-    p.add_argument("--model-dir", default="model_data", help="not ported yet")
+    p.add_argument("--pretrained", action="store_true",
+                   help="start both backbones from the reference's pretrained "
+                        "backbone file in --model-dir (never downloaded)")
+    p.add_argument("--model-dir", default="model_data",
+                   help="where --pretrained finds yolov8_<phi>_backbone_weights.pth")
     p.add_argument("--resume", default="",
                    help="a checkpoint of the port to resume from (parameters, BN "
                         "statistics, EMA, optimizer state and epoch)")
@@ -153,15 +157,57 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
+def load_initial_weights(args: argparse.Namespace, model, say=print) -> Dict:
+    """Fill `model` (the train graph, unfolded) with its weights before the
+    first step, from one source of four as `train.py:186-218` picks them;
+    returns a report naming the `source`, the import's `matched` and
+    `skipped` keys where the backbone file was imported, and the `resume`
+    payload."""
+    from dcfa_yolo_tpu_torch.train.init_weights import (flax_default_init,
+                                                        reference_weights_init)
+    from dcfa_yolo_tpu_torch.utils.checkpoint import load_checkpoint, load_variables
+
+    if args.resume:
+        say(f"Resume from {args.resume}.")
+        resume = load_checkpoint(args.resume)
+        model.load_state_dict({**resume["params"], **resume["batch_stats"]}, strict=True)
+        return {"source": "resume", "resume": resume}
+    if args.model_path:
+        # over the JAX model's initial state: a reference .pth / .npz imports
+        # non-strictly (a single-modal `backbone.*` file fills both
+        # backbones, the rest stays at that state); a port or JAX checkpoint
+        # must be complete
+        say(f"Load weights {args.model_path}.")
+        flax_default_init(model, args.seed)
+        model.load_state_dict(load_variables(args.model_path, model.state_dict),
+                              strict=True)
+        return {"source": "model_path"}
+    if args.pretrained:
+        # the reference's Backbone-module key space, prefixed so that the
+        # importer's single → dual surgery fills backbone_rgb and _nir
+        # (`train.py:198-214`); its weights_init is skipped
+        from dcfa_yolo_tpu_torch.models.torch_import import (import_state_dict,
+                                                             load_torch_checkpoint)
+        from dcfa_yolo_tpu_torch.utils.general import download_weights
+
+        path = download_weights(args.phi, args.model_dir)
+        sd = {f"backbone.{k}": v for k, v in load_torch_checkpoint(path).items()}
+        flax_default_init(model, args.seed)
+        state, imported = import_state_dict(sd, model.state_dict(), strict=False)
+        model.load_state_dict(state, strict=True)
+        say(f"Load pretrained backbone {path}: {len(imported['matched'])} tensors "
+            f"into both branches, {len(imported['skipped'])} skipped.")
+        return {"source": "pretrained", "path": path,
+                "matched": imported["matched"], "skipped": imported["skipped"]}
+    reference_weights_init(model, seed=args.seed, init_type=args.init_type)
+    return {"source": "init"}
+
+
 def run(argv: Optional[Sequence[str]] = None) -> Dict:
     """Train as `train.py` does; returns what the run did: its log
     directory, first epoch, EMA counter at the start, the trainer, and per
     epoch the losses, mAP, step timing and loader capacity."""
     args = parse_args(argv)
-    for dest, (default, item) in _LEFT_OUT.items():
-        if getattr(args, dest) != default:
-            raise NotImplementedError(
-                f"--{dest.replace('_', '-')} is not ported yet (ROADMAP.md, {item})")
 
     from dcfa_yolo_tpu_torch.device import resolve_device
 
@@ -198,12 +244,10 @@ def _train(args, device, group, rank: int, world: int) -> Dict:
     from dcfa_yolo_tpu_torch.models.reparam import (apply_shuffle_spec, fold_opt_state,
                                                     shuffle_fold_spec)
     from dcfa_yolo_tpu_torch.models.yolo import DCFAYolo
-    from dcfa_yolo_tpu_torch.train.init_weights import reference_weights_init
     from dcfa_yolo_tpu_torch.train.schedule import get_lr_scheduler
     from dcfa_yolo_tpu_torch.train.trainer import Trainer, TrainState
     from dcfa_yolo_tpu_torch.utils.callbacks import EvalCallback, LossHistory
-    from dcfa_yolo_tpu_torch.utils.checkpoint import (load_checkpoint, load_variables,
-                                                      save_checkpoint)
+    from dcfa_yolo_tpu_torch.utils.checkpoint import save_checkpoint
     from dcfa_yolo_tpu_torch.utils.profiling import StepTimer, trace
 
     lead = rank == 0
@@ -240,20 +284,8 @@ def _train(args, device, group, rank: int, world: int) -> Dict:
 
     # the canonical train graph's weights, on the host
     model = DCFAYolo(cfg)
-    resume = None
-    if args.resume:
-        say(f"Resume from {args.resume}.")
-        resume = load_checkpoint(args.resume)
-        model.load_state_dict({**resume["params"], **resume["batch_stats"]}, strict=True)
-    else:
-        reference_weights_init(model, seed=tc.seed, init_type=args.init_type)
-    if args.model_path and not args.resume:
-        # over the init (`train.py:195-197`): a reference .pth / .npz imports
-        # non-strictly (a single-modal `backbone.*` file fills both backbones,
-        # the rest stays at init); a port or JAX checkpoint must be complete
-        say(f"Load weights {args.model_path}.")
-        model.load_state_dict(load_variables(args.model_path, model.state_dict),
-                              strict=True)
+    init_report = load_initial_weights(args, model, say)
+    resume = init_report.get("resume")
 
     spec = None
     if args.fold_shuffle:
@@ -391,6 +423,7 @@ def _train(args, device, group, rank: int, world: int) -> Dict:
     lr_fn = get_lr_scheduler(tc.lr_decay_type, init_lr_fit, min_lr_fit, tc.unfreeze_epoch)
     report: Dict = dict(log_dir=log_dir, init_epoch=init_epoch,
                         ema_updates_at_start=trainer.ema.updates, trainer=trainer,
+                        init={k: v for k, v in init_report.items() if k != "resume"},
                         epochs=[])
 
     best_val = float("inf")

@@ -9,6 +9,13 @@ from one numpy PCG64(seed) in the order the JAX package draws them: jax's
 flattening order of the flax parameter tree, which is its sorted key paths,
 with each kernel drawn in HWIO shape and transposed to OIHW.  The port's
 initialisation is therefore bit-identical to the JAX one without JAX.
+
+`flax_default_init` is the state `init_model(cfg, PRNGKey(seed))` gives the
+JAX model before any of that, which `--model-path` and `--pretrained` load
+their files over: flax's `lecun_normal` kernels, zero biases, BN γ=1, β=0
+with running mean 0 and variance 1, BiFPN `w` = 1.  jax.random's stream
+cannot be reproduced without JAX, so those kernels match JAX's in
+distribution, not bit for bit.
 """
 
 from __future__ import annotations
@@ -46,7 +53,7 @@ def _init_kernel(rng: np.random.Generator, shape, init_type: str,
         if transpose:
             q = q.T
         return (init_gain * q.reshape(shape)).astype(np.float32)
-    raise NotImplementedError(f"initialization method [{init_type}] is not implemented")
+    raise ValueError(f"unknown initialization method [{init_type}]")
 
 
 def flax_param_paths(model: nn.Module) -> List[Tuple[Tuple[str, ...], str]]:
@@ -81,4 +88,48 @@ def reference_weights_init(model: nn.Module, seed: int = 0,
                 (1.0 + rng.standard_normal(p.shape) * 0.02).astype(np.float32)))
         elif path[-1] == "bias" and p.dim() == 1:
             p.zero_()
+    return model
+
+
+# flax `variance_scaling`'s truncated-normal correction: the stddev of a
+# unit normal truncated to ±2
+_TRUNC_STD = 0.87962566103423978
+
+
+def _truncated_normal(rng: np.random.Generator, shape) -> np.ndarray:
+    """Unit normal draws truncated to [-2, 2], out-of-range values redrawn."""
+    x = rng.standard_normal(shape)
+    bad = np.abs(x) > 2.0
+    while bad.any():
+        x[bad] = rng.standard_normal(int(bad.sum()))
+        bad = np.abs(x) > 2.0
+    return x
+
+
+@torch.no_grad()
+def flax_default_init(model: nn.Module, seed: int = 0) -> nn.Module:
+    """The JAX model's initial state (`init_model`), in place: every conv
+    kernel drawn as flax's `lecun_normal` (a normal truncated to ±2 with
+    stddev sqrt(1 / fan_in) / 0.8796, fan_in = kh·kw·cin/groups of the
+    HWIO kernel) from one numpy PCG64(seed) in jax's flattening order, each
+    bias 0, BN γ=1 and β=0, running mean 0 and variance 1, BiFPN `w` 1."""
+    rng = np.random.Generator(np.random.PCG64(seed))
+    params = dict(model.named_parameters())
+    for path, name in flax_param_paths(model):
+        p = params[name]
+        if path[-1] == "kernel" and p.dim() == 4:
+            hwio = tuple(p.permute(2, 3, 1, 0).shape)
+            std = math.sqrt(1.0 / int(np.prod(hwio[:-1]))) / _TRUNC_STD
+            k = (_truncated_normal(rng, hwio) * std).astype(np.float32)
+            p.copy_(torch.from_numpy(k.transpose(3, 2, 0, 1).copy()))
+        elif path[-1] in ("scale", "w"):
+            p.fill_(1.0)
+        elif path[-1] == "bias":
+            p.zero_()
+        else:
+            raise ValueError(f"no flax default for {name} ({path})")
+    for mod in model.modules():
+        if isinstance(mod, BatchNorm):
+            mod.running_mean.zero_()
+            mod.running_var.fill_(1.0)
     return model

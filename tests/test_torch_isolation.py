@@ -105,8 +105,8 @@ def test_walk_covers_the_training_cli_modules():
     """The import probe above walks every module of the package, the host
     data path, the mAP harness, the utilities, the tools, the weight
     importer and exporter, the training CLI's `__main__`, the flat tail,
-    the data-parallel modules, augmentation on the device, its bench and
-    the dataset-prep CLI included."""
+    the data-parallel modules, augmentation on the device, its bench, the
+    dataset-prep CLI and the general utilities included."""
     names = {m.name for m in pkgutil.walk_packages(dcfa_yolo_tpu_torch.__path__,
                                                    "dcfa_yolo_tpu_torch.")}
     for name in ("data.augment", "data.loader", "data.voc",
@@ -117,7 +117,7 @@ def test_walk_covers_the_training_cli_modules():
                  "utils.golden", "models.torch_import", "models.torch_export",
                  "tools.export", "train.flat_opt", "parallel.mesh", "parallel.fused_check",
                  "parallel.serve", "parallel.dryrun", "data.device_aug",
-                 "tools.bench_device_aug", "voc_annotation"):
+                 "tools.bench_device_aug", "voc_annotation", "utils.general"):
         assert f"dcfa_yolo_tpu_torch.{name}" in names
 
 

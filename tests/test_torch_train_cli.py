@@ -144,15 +144,6 @@ def test_step_timer_on_the_cpu():
     assert s["steps"] == 3 and 0 < s["p50_ms"] <= s["p95_ms"] and s["mean_ms"] > 0
 
 
-def test_left_out_flags_raise(dataset, tmp_path):
-    """Only --pretrained and --model-dir are left out (they wait for the
-    backbone weights file); --remat and --device-aug* run
-    (tests/test_torch_device_aug.py)."""
-    for extra in (["--pretrained"], ["--model-dir", "elsewhere"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            run(_args(dataset, tmp_path, *extra))
-
-
 def test_checkpoint_loader_refuses_foreign_files(tmp_path):
     """`load_checkpoint` (what --resume reads) takes only the port's own
     checkpoints and names the formats `load_variables` takes as weights; a
