@@ -41,6 +41,7 @@ from __future__ import annotations
 import dataclasses
 import importlib.util
 import json
+import math
 import os
 import re
 import shutil
@@ -585,10 +586,19 @@ def phase_train_stem(dev, dtype=torch.bfloat16):
 def phase_train(dev):
     """The train path: Trainer at phi='n' 640² bf16, b16 SGD-nesterov, the
     reference init (seed 0), 6 steps at a fixed LR on one batch, with the
-    launch counts read around exactly those steps; then one step of the
-    'kernel' graph against one of the 'plain' graph from the same weights,
-    in bf16 (loss within 2%, stem-kernel gradient cosine ≥ 0.99) and in
-    float32 (loss within 1e-4 relative, cosine ≥ 0.999)."""
+    launch counts read around exactly those steps; then one step (forward,
+    loss, backward) of the 'kernel' graph and one of the 'plain' graph from
+    the same weights in bf16 and in float32, the counts read around those
+    four: kernel against plain in bf16 (loss within 2%, stem-kernel
+    gradient cosine ≥ 0.99) and in float32 (loss within 1e-4 relative,
+    cosine ≥ 0.999); each graph's bf16 gradient against its float32 one
+    leaf by leaf (the stem convs, the five lowest, the count below 0.99;
+    reported); the stem conv weight gradients of the plain bf16 step
+    (cuDNN's bf16 backward) against the float32 reduction of the same bf16
+    operands rounded once (2 bf16 steps of the largest entry); and the
+    bf16 matrix products of the kernel-graph step that run through cuBLAS,
+    with `allow_bf16_reduced_precision_reduction`.  Returns kernel C's
+    launches by entry."""
     from dcfa_yolo_tpu_torch.config import ModelConfig, TrainConfig
     from dcfa_yolo_tpu_torch.models.yolo import init_model
     from dcfa_yolo_tpu_torch.ops import cuda_nms, cuda_stem, cuda_stem_train
@@ -645,41 +655,88 @@ def phase_train(dev):
     print(f"[train] peak device memory so far {peak:.2f} GiB")
 
     del tr, batch
-    # the kernel graph against the plain graph, one step from the same weights
-    for dtype, loss_tol, cos_tol in (("bfloat16", 0.02, 0.99), ("float32", 1e-4, 0.999)):
-        out = {}
+    cuda_stem_train.LAUNCHES = cuda_stem_train.LAUNCHES_F32 = 0
+    runs = one_step_runs(dev, cfg, tc, host_batch)
+    torch.cuda.synchronize()
+    launches["stem_train"] += cuda_stem_train.LAUNCHES - cuda_stem_train.LAUNCHES_F32
+    launches["stem_train_f32"] = cuda_stem_train.LAUNCHES_F32
+    check(launches["stem_train_f32"] == 2 and launches["stem_train"] == 2 * steps + 2,
+          f"kernel C launches in the one-step comparisons: {launches}")
+    report_one_step_runs(*runs)
+    return launches
+
+
+def one_step_runs(dev, cfg, tc, host_batch):
+    """One step (forward, loss, backward) of the 'kernel' and of the 'plain'
+    stem graph from the same weights (`cfg` with seed SEED), in bf16 and in
+    float32: ({(dtype, graph): (loss, gradient leaves)}, the plain bf16
+    step's stem conv taps, the kernel bf16 step's cuBLAS bf16 products)."""
+    from dcfa_yolo_tpu_torch.models.yolo import init_model
+    from dcfa_yolo_tpu_torch.train.trainer import Trainer
+
+    steps = {}
+    for dtype in ("bfloat16", "float32"):
         for backend in ("kernel", "plain"):
             c = dataclasses.replace(cfg, train_stem_backend=backend, compute_dtype=dtype)
             t = Trainer(init_model(c, SEED, dev, train=True), tc, device=dev)
             check(t.train_stem == backend, f"{backend!r} resolved to {t.train_stem!r}")
             bt = t.put_batch(*host_batch)
-            lb = t.loss(t.forward(bt), bt)
-            grads = t.backward(lb.total)
-            names = [n for n, _ in t._named]
-            out[backend] = (float(lb.total.detach()),
-                            grads[names.index("backbone_rgb.stem.conv.weight")].flatten(),
-                            grads[names.index("backbone_nir.stem.conv.weight")].flatten())
-            del t, grads, bt, lb
-        loss_rel = abs(out["kernel"][0] - out["plain"][0]) / abs(out["plain"][0])
-        cos = [float(torch.nn.functional.cosine_similarity(out["kernel"][i], out["plain"][i], 0))
-               for i in (1, 2)]
+            named = [(n, p.detach()) for n, p in t._named]
+            if (dtype, backend) == ("bfloat16", "kernel"):
+                with GemmRecorder() as gemms:
+                    loss, flat = one_step_grad(t, bt)
+            elif (dtype, backend) == ("bfloat16", "plain"):
+                with StemConvTap(t.model) as taps:
+                    loss, flat = one_step_grad(t, bt)
+            else:
+                loss, flat = one_step_grad(t, bt)
+            steps[(dtype, backend)] = (loss, grad_leaves(flat, named))
+            del t, bt
+    return steps, taps, gemms
+
+
+def report_one_step_runs(steps, taps, gemms):
+    """[train]'s checks and report on `one_step_runs` (`phase_train`)."""
+    stems = tuple(f"backbone_{m}.stem.conv.weight" for m in ("rgb", "nir"))
+    for dtype, loss_tol, cos_tol in (("bfloat16", 0.02, 0.99), ("float32", 1e-4, 0.999)):
+        (lk, gk), (lp, gp) = steps[(dtype, "kernel")], steps[(dtype, "plain")]
+        loss_rel = abs(lk - lp) / abs(lp)
+        cos = [float(gk[n] @ gp[n] / (np.linalg.norm(gk[n]) * np.linalg.norm(gp[n])))
+               for n in stems]
         print(f"[train] {dtype} kernel vs plain stem graph, one step from the same weights: "
-              f"loss {out['kernel'][0]:.6f} vs {out['plain'][0]:.6f} (rel {loss_rel:.3g}, tol "
-              f"{loss_tol:g}), stem conv-kernel gradient cosine rgb {cos[0]:.7f} nir "
-              f"{cos[1]:.7f} (tol {cos_tol:g})")
+              f"loss {lk:.6f} vs {lp:.6f} (rel {loss_rel:.3g}, tol {loss_tol:g}), stem "
+              f"conv-kernel gradient cosine rgb {cos[0]:.7f} nir {cos[1]:.7f} (tol {cos_tol:g})")
         check(loss_rel <= loss_tol and min(cos) >= cos_tol,
               f"{dtype} kernel stem graph disagrees with the plain graph")
-    return launches
+    for backend in ("kernel", "plain"):
+        leaves = leaf_cosines(steps[("bfloat16", backend)][1], steps[("float32", backend)][1])
+        zero = zero_leaves(leaves, 0.99)
+        held = {n: v for n, v in leaves.items() if n not in zero}
+        low = sorted(held, key=lambda n: held[n][0])[:5]
+        print(f"[train] {backend} graph, bf16 gradient against float32 (TF32 off), leaf by "
+              f"leaf: stem conv cosine rgb {leaves[stems[0]][0]:.7f} nir "
+              f"{leaves[stems[1]][0]:.7f}; {sum(v[0] < 0.99 for v in held.values())} of "
+              f"{len(held)} leaves below 0.99 ({len(zero)} zero in exact arithmetic left "
+              f"out); lowest " + ", ".join(f"{n} {held[n][0]:.5f}" for n in low))
+        check(all(np.isfinite(v[0]) for v in held.values()),
+              f"[train] {backend}: a non-finite bf16 gradient cosine")
+    check(set(taps) == {"rgb", "nir"}, f"[train] stem conv taps fired for {sorted(taps)}")
+    for m, (x, g) in sorted(taps.items()):
+        stem_wgrad_check(x, g, steps[("bfloat16", "plain")][1][f"backbone_{m}.stem.conv.weight"],
+                         m)
+    print(f"[train] torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction "
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}; bf16 "
+          f"matrix products through cuBLAS in one kernel-graph step: "
+          + (", ".join(f"{k} ×{v}" for k, v in sorted(gemms.counts.items())) or "none"))
 
 
 def phase_remat(dev):
     """Backbone rematerialization (`ModelConfig.remat`, `torch.utils.
     checkpoint`) on the train path: phi='n' 640², [train]'s init (seed 0) and
     optimizer, kernel C in both stems, one seeded b16 batch.  One step with
-    and one without remat from the same weights: in float32 with
-    deterministic cuDNN the loss terms, every gradient leaf and the BN
-    running statistics `torch.equal`; in bf16 at [train]'s limits (loss 2%,
-    stem conv-kernel gradient cosine ≥ 0.99), bit-equality reported.
+    and one without remat from the same weights, with deterministic cuDNN,
+    in float32 and in bf16: the loss terms, every gradient leaf and the BN
+    running statistics `torch.equal`.
     Kernel C launches 4 times a step with remat (the forward and the
     backward's recompute, both stems; the backward itself differentiates
     the plain decomposition) and 2 without.  Then peak device memory and
@@ -728,10 +785,10 @@ def phase_remat(dev):
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         f32 = {r: one_step("float32", r) for r in (False, True)}
+        bf16 = {r: one_step("bfloat16", r) for r in (False, True)}
     finally:
         torch.use_deterministic_algorithms(False)
         torch.backends.cudnn.deterministic = False
-    bf16 = {r: one_step("bfloat16", r) for r in (False, True)}
     for dtype, runs in (("float32", f32), ("bfloat16", bf16)):
         a, r = runs[False], runs[True]
         same = dict(loss=torch.equal(a["terms"], r["terms"]),
@@ -746,17 +803,11 @@ def phase_remat(dev):
               f"{loss_rel:.3g}); torch.equal loss terms {same['loss']}, flat gradient "
               f"{same['grad']}, BN running statistics {same['stats']}; stem conv cosine "
               f"{stem_cos:.7f}; kernel C launches a step {r['launches']} with, "
-              f"{a['launches']} without" + ("; deterministic cuDNN" if dtype == "float32"
-                                            else ""))
+              f"{a['launches']} without; deterministic cuDNN")
         check(r["launches"] == 4 and a["launches"] == 2,
               f"[remat] {dtype}: kernel C launched {r['launches']} / {a['launches']} times a "
               "step with / without remat, expected 4 / 2")
-        if dtype == "float32":
-            check(all(same.values()), f"[remat] float32 step with remat differs: {same}")
-        else:
-            check(loss_rel <= 0.02 and stem_cos >= 0.99,
-                  f"[remat] bf16 step with remat off [train]'s limits: loss rel "
-                  f"{loss_rel:.3g}, stem cosine {stem_cos:.7f}")
+        check(all(same.values()), f"[remat] {dtype} step with remat differs: {same}")
     del f32, bf16
 
     def measure(b, remat, steps=2):
@@ -2197,6 +2248,96 @@ def zero_leaves(leaves, cos_tol):
                   if not c >= cos_tol and r <= ABS_FLOOR and d <= ABS_FLOOR)
 
 
+def one_step_grad(trainer, batch):
+    """A trainer's loss and flat gradient (float64, on the host) of one
+    forward, loss and backward, with no update."""
+    lb = trainer.loss(trainer.forward(batch), batch)
+    grads = trainer.backward(lb.total)
+    return (float(lb.total.detach()),
+            torch.cat([g.flatten() for g in grads]).double().cpu().numpy())
+
+
+class GemmRecorder:
+    """While active, counts the matrix products (cuBLAS: mm, addmm, bmm,
+    baddbmm) that take a bf16 CUDA operand, by op and operand shapes,
+    through a `TorchDispatchMode` (the autograd engine's threads inherit
+    it)."""
+
+    GEMMS = ("mm", "addmm", "bmm", "baddbmm", "addbmm", "_scaled_mm")
+
+    def __enter__(self):
+        import collections
+
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        self.counts = counts = collections.Counter()
+        gemms = self.GEMMS
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                tensors = [a for a in args if isinstance(a, torch.Tensor)]
+                if (func.overloadpacket.__name__ in gemms
+                        and any(t.is_cuda and t.dtype == torch.bfloat16 for t in tensors)):
+                    counts[func.overloadpacket.__name__ + " " + " @ ".join(
+                        "x".join(map(str, t.shape)) for t in tensors)] += 1
+                return func(*args, **(kwargs or {}))
+
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+
+class StemConvTap(dict):
+    """While active, records for each stem of a plain-graph model in a train
+    step the conv's input and the cotangent of its output, both in the
+    compute dtype: {modality: (x, g)}."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.convs = {m: getattr(model, f"backbone_{m}").stem.conv for m in ("rgb", "nir")}
+
+    def __enter__(self):
+        def hook(m):
+            def seen(conv, args, y):
+                y.register_hook(lambda g: self.__setitem__(m, (args[0].detach(), g.detach())))
+            return seen
+        self.handles = [conv.register_forward_hook(hook(m)) for m, conv in self.convs.items()]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+
+
+def bf16_step_of(t):
+    """The bf16 spacing at a tensor's largest magnitude."""
+    return 2.0 ** (math.floor(math.log2(float(t.abs().max()))) - 7)
+
+
+def stem_wgrad_check(x, g, step_grad, modality):
+    """The stem conv's weight gradient that the bf16 step took (cuDNN's bf16
+    backward; `step_grad`, a leaf of `grad_leaves`) against the JAX
+    contract's reduction of the same bf16 operands, the conv's input x and
+    its output's cotangent g as the step saw them: summed in float32 (TF32
+    is off) and rounded once to bf16.  Within 2 bf16 steps of the largest
+    entry."""
+    from torch.nn.grad import conv2d_weight
+
+    shape = (16, 3, 3, 3)
+    ref = conv2d_weight(x.float(), shape, g.float(), padding=1).to(torch.bfloat16).double()
+    step = torch.from_numpy(step_grad).to(ref.device).view(shape)
+    d = float((step - ref).abs().max()) / bf16_step_of(ref)
+    cos = float((step * ref).sum() / (step.norm() * ref.norm()))
+    print(f"[train] {modality} stem conv weight gradient, bf16 step (cuDNN's bf16 backward) "
+          f"against the float32 sums of its bf16 operands rounded once: cosine {cos:.7f}, "
+          f"max |Δ| {d:.2f} bf16 steps of the largest entry (tol 2) | {CARD}")
+    check(d <= 2.0, f"[train] {modality} stem weight gradient off the float32 reduction "
+          f"rounded once by {d:.2f} bf16 steps")
+
+
 def rel_err(got, ref):
     """max |got − ref| relative to |ref|, floored at 1e-3 of max |ref| (a
     channel whose mean sits near zero is held to the others' scale)."""
@@ -2616,11 +2757,13 @@ def main() -> int:
         launches, nms_t = phase_serve(dev)
         train_stem_t = phase_train_stem(dev)
         train_stem_f32_t = phase_train_stem(dev, torch.float32)
-        launches["stem_train"] = phase_train(dev)["stem_train"]
+        train_n = phase_train(dev)
+        launches["stem_train"] = train_n["stem_train"]
         remat_n = phase_remat(dev)
         data = train_data(32)
         try:
             launches.update(phase_train_cli(dev, data))
+            launches["stem_train_f32"] += train_n["stem_train_f32"]
             phase_device_aug(dev, data)
         finally:
             shutil.rmtree(data[0], ignore_errors=True)

@@ -14,7 +14,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from dcfa_yolo_tpu_torch.ops.conv import Conv, ConvBnAct, silu
+from dcfa_yolo_tpu_torch.ops.conv import Conv, ConvBnAct, conv_bn, silu
 from dcfa_yolo_tpu_torch.ops.cuda_stem_train import (fused_train_stem,
                                                      resolve_train_stem)
 from dcfa_yolo_tpu_torch.ops.norm import BatchNorm, update_running
@@ -131,9 +131,9 @@ class ShuffleNetV2Block(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x1, x2 = x.chunk(2, dim=1)
-        y = torch.relu(self.b2_bn1(self.b2_conv1(x2)))
-        y = self.b2_bn2(self.b2_dwconv(y))
-        y = torch.relu(self.b2_bn3(self.b2_conv3(y)))
+        y = torch.relu(conv_bn(self.b2_conv1, self.b2_bn1, x2))
+        y = conv_bn(self.b2_dwconv, self.b2_bn2, y)
+        y = torch.relu(conv_bn(self.b2_conv3, self.b2_bn3, y))
         out = torch.cat([x1, y], dim=1)
         return out if self.skip_shuffle else channel_shuffle(out, 2)
 
@@ -206,12 +206,13 @@ class RepGhostModule(nn.Module):
             self.fusion_bn = BatchNorm(c_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x1 = self.primary_bn(self.primary_conv(x))
+        x1 = conv_bn(self.primary_conv, self.primary_bn, x)
         if self.relu:
             x1 = silu(x1)
-        x2 = self.cheap_conv(x1)
-        if not self.deploy:
-            x2 = self.cheap_bn(x2) + self.fusion_bn(x1)
+        if self.deploy:
+            x2 = self.cheap_conv(x1)
+        else:
+            x2 = conv_bn(self.cheap_conv, self.cheap_bn, x1) + self.fusion_bn(x1)
         if self.relu:
             x2 = silu(x2)
         return x2

@@ -8,10 +8,28 @@ the weight of the new batch statistic in the running update.
 
 Parameters stay float32; each conv casts its weights to the activation dtype
 when it runs, as flax's `nn.Conv(dtype=...)` does.
+
+Below float32, a bias-free conv hands a train-mode BatchNorm the float32
+sums of its products (`conv_bn`), not their rounding to the activation
+dtype.  That is the JAX bf16 train step as XLA compiles it for the CPU,
+which has no bf16 convolution or dot: the `float-normalization-bf16` pass
+rewrites them to float32 and, where the only users of the result are the
+BN's casts to float32 (`dcfa_yolo_tpu/ops/norm.py:60,84`), drops the
+rounding between.  Whether a TPU compile drops it is not shown.  In the
+backward the cotangent is rounded to the activation dtype first (the VJP of
+the BN's cast, which the compile keeps), the sums are float32, and the
+input and weight gradients are each rounded once (the CPU compile leaves
+the weight gradient's sums unrounded; the jaxpr rounds them).  The
+ShuffleNet depthwise conv adds its bias in the activation dtype first, so
+it stays rounded.  The stem is the exception: both of its train graphs keep
+the Pallas stem's contract, the conv rounded before the statistics
+(`ops/cuda_stem_train.py`, `models/blocks.py::ConvMaxpool`), which the
+compiled XLA stem, the JAX CLI's default, does not.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence, Union
 
 import torch
@@ -48,6 +66,60 @@ class Conv(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), b)
+
+    def accumulate(self, x: torch.Tensor) -> torch.Tensor:
+        """The float32 sums of the bias-free conv in x's dtype, before they
+        are rounded (`_Accumulate`)."""
+        return _Accumulate.apply(x, self.weight.to(x.dtype), self.stride,
+                                 self.padding, self.groups)
+
+
+class _Accumulate(torch.autograd.Function):
+    """conv2d of x and w (both in the activation dtype) with float32 output:
+    the float32 conv of their float32 copies, whose products are exact (a
+    bf16 value is exact in float32 and in TF32, so cuDNN may take TF32
+    whatever the global setting).  It keeps x and w in their own dtype for
+    the backward, which rounds the cotangent to x's dtype, forms the float32
+    copies again and rounds the input gradient once to x's dtype, the
+    weight gradient to w's."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, groups):
+        ctx.save_for_backward(x, w)
+        ctx.conv = (stride, padding, groups)
+        with _tf32_convs():
+            return F.conv2d(x.float(), w.float(), None, stride, padding, 1, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride, padding, groups = ctx.conv
+        with _tf32_convs():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g.to(x.dtype).float(), x.float(), w.float(), None, stride, padding, (1, 1),
+                False, (0, 0), groups, (ctx.needs_input_grad[0], ctx.needs_input_grad[1], False))
+        return (None if gx is None else gx.to(x.dtype),
+                None if gw is None else gw.to(w.dtype), None, None, None)
+
+
+@contextlib.contextmanager
+def _tf32_convs():
+    """cuDNN's TF32 allowed for the convs of `_Accumulate`, whose operands
+    are all bf16 values."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+def conv_bn(conv: Conv, bn: BatchNorm, x: torch.Tensor) -> torch.Tensor:
+    """bn(conv(x)), a train-mode BN below float32 reading the float32 sums
+    of a bias-free conv (module docstring)."""
+    if bn.training and x.dtype != torch.float32 and conv.bias is None:
+        return bn(conv.accumulate(x), x.dtype)
+    return bn(conv(x))
 
 
 def parts_conv(conv: Conv, parts: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -94,5 +166,6 @@ class ConvBnAct(nn.Module):
         self.bn = BatchNorm(c_out, eps=bn_eps, momentum=bn_momentum)
 
     def forward(self, x: Union[torch.Tensor, Sequence[torch.Tensor]]) -> torch.Tensor:
-        y = parts_conv(self.conv, x) if isinstance(x, (tuple, list)) else self.conv(x)
-        return silu(self.bn(y))
+        if isinstance(x, (tuple, list)):
+            return silu(self.bn(parts_conv(self.conv, x)))
+        return silu(conv_bn(self.conv, self.bn, x))

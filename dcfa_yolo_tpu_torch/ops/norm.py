@@ -7,7 +7,8 @@ activation dtype, and applies them as one multiply-add in that dtype.
 
 Train mode normalizes with the batch moments, computed in float32 over N, H
 and W as `mean` and `mean²` with `var = max(mean² − mean², 0)`, normalizes in
-float32 and casts to the activation dtype.  Autograd differentiates that
+float32 and casts to the activation dtype (the conv before it may hand over
+its float32 sums, `ops/conv.py::conv_bn`).  Autograd differentiates that
 formula as written, through the batch mean and variance.  The running
 statistics move as in torch: `r ← (1−m)·r + m·stat`, the variance with the
 Bessel factor n/(n−1).  `F.batch_norm` is not used: its variance and its
@@ -32,6 +33,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+from typing import Optional
 
 import torch
 from torch import nn
@@ -104,7 +106,10 @@ class BatchNorm(nn.Module):
         shift = self.bias - self.running_mean * inv
         return inv, shift
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None
+                ) -> torch.Tensor:
+        """`dtype`: the train-mode output's, when x is a conv's float32 sums
+        (`ops/conv.py::conv_bn`); default x's."""
         shape = (1, -1, 1, 1)
         if not self.training:
             inv, shift = self.folded()
@@ -116,4 +121,4 @@ class BatchNorm(nn.Module):
                        x.shape[0] * x.shape[2] * x.shape[3] * world_size(self.group))
         y = (xf - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
         y = y * self.weight.view(shape) + self.bias.view(shape)
-        return y.to(x.dtype)
+        return y.to(dtype or x.dtype)

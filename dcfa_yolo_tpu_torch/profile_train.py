@@ -84,7 +84,8 @@ def main(argv=None) -> int:
         trainer.train_step(batch, lr)
     runs = [step_stages(trainer, batch, lr) for _ in range(args.iters)]
     med = {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
-    lines = [f"device {torch.cuda.get_device_name(0)}",
+    lines = [f"device {torch.cuda.get_device_name(0)}, cuDNN TF32 "
+             f"{torch.backends.cudnn.allow_tf32}",
              f"b{tc.batch_size} stages (median of {args.iters}, ms): " + ", ".join(
                  f"{k} {v:.3f}" for k, v in med.items())
              + f" | sum {sum(med.values()):.3f}"]
