@@ -48,6 +48,7 @@ from PIL import Image
 from dcfa_yolo_tpu_torch.data.augment import load_rgb_u8
 from dcfa_yolo_tpu_torch.device import resolve_device
 from dcfa_yolo_tpu_torch.train.trainer import Batch
+from dcfa_yolo_tpu_torch.utils.profiling import span
 
 
 class StagedDataset(NamedTuple):
@@ -631,6 +632,7 @@ class DeviceAugLoader:
                                         resample_dtype=resample_dtype,
                                         out_dtype=out_dtype)
         self._epoch = 0
+        self.batches = 0  # batches made: the request id of their spans
         # BatchLoader-compatible accounting (overflow happens at staging)
         self.overflow_items = ds.overflow_items
         self.overflow_dropped = ds.overflow_dropped
@@ -685,8 +687,15 @@ class DeviceAugLoader:
         local = self.batch_size // self.world
         rows = slice(self.rank * local, (self.rank + 1) * local)
         for i in range(0, stop, self.batch_size):
-            idx = order[i:i + self.batch_size]
-            if len(idx) < self.batch_size:  # pad the ragged tail batch
-                idx = np.resize(idx, self.batch_size)
-            params = GeomParams(*(x[rows] for x in self.sampler.sample(rng, idx)))
-            yield self.augment_batch(params.idx, params)
+            self.batches += 1
+            # the span closes before the yield: the consumer's time between
+            # batches is not the loader's
+            with span("device_aug.batch", request=self.batches):
+                idx = order[i:i + self.batch_size]
+                if len(idx) < self.batch_size:  # pad the ragged tail batch
+                    idx = np.resize(idx, self.batch_size)
+                with span("device_aug.sample"):
+                    params = GeomParams(*(x[rows] for x in self.sampler.sample(rng, idx)))
+                with span("device_aug.program"):
+                    batch = self.augment_batch(params.idx, params)
+            yield batch

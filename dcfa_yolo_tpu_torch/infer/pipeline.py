@@ -30,6 +30,7 @@ from dcfa_yolo_tpu_torch.ops.cuda_stem import STEM_CO, fold_stem_params, stem_ev
 from dcfa_yolo_tpu_torch.ops.nms import NMSResult, batched_nms, resolve_nms
 from dcfa_yolo_tpu_torch.ops.resize import (letterbox_batch, letterbox_batch_cf,
                                             resize_bicubic)
+from dcfa_yolo_tpu_torch.utils.profiling import span
 
 # the JAX package's stem backend names: its four Pallas canvas layouts are
 # one function, served here by the one kernel; its XLA stem is the plain graph
@@ -280,16 +281,20 @@ def _replay(model: DCFAYolo, key, fn: Callable, args):
     if g is None:
         dev = _device(model)
         inputs = tuple(torch.empty(a.shape, dtype=a.dtype, device=dev) for a in args)
-        for buf, a in zip(inputs, args):
-            buf.copy_(a)
-        g = _capture(model, fn, inputs)
+        with span("pipeline.copy_in"):
+            for buf, a in zip(inputs, args):
+                buf.copy_(a)
+        with span("pipeline.capture"):
+            g = _capture(model, fn, inputs)
         _GRAPHS[model]["graphs"][key] = g
-    for buf, a in zip(g.inputs, args):
-        buf.copy_(a)
-    g.graph.replay()
-    for m, n in zip(_COUNTED, g.launches):
-        m.LAUNCHES += n
-    outs = tuple(t.clone() for t in g.outputs)
+    with span("pipeline.copy_in"):
+        for buf, a in zip(g.inputs, args):
+            buf.copy_(a)
+    with span("pipeline.replay"):
+        g.graph.replay()
+        for m, n in zip(_COUNTED, g.launches):
+            m.LAUNCHES += n
+        outs = tuple(t.clone() for t in g.outputs)
     return type(g.outputs)(*outs) if isinstance(g.outputs, NMSResult) else outs
 
 

@@ -31,6 +31,7 @@ from dcfa_yolo_tpu_torch.models.convert import from_jax_variables
 from dcfa_yolo_tpu_torch.models.reparam import (cast_model_conv_kernels,
                                                 serving_state_dict)
 from dcfa_yolo_tpu_torch.models.yolo import _DTYPES, DCFAYolo, init_model
+from dcfa_yolo_tpu_torch.utils.profiling import span
 
 def get_classes(classes_path: str) -> Tuple[List[str], int]:
     """Read class names, one per line (`utils/utils.py:42-46`)."""
@@ -133,6 +134,7 @@ class YOLOPredictor:
         # the fixed-shape caps' deviation observable)
         self.cap_stats = dict(images=0, topk_bound=0, max_det_saturated=0,
                               max_candidates=0)
+        self.calls = 0  # pipeline calls: the request id of their spans
         hsv = [(x / self.num_classes, 1.0, 1.0) for x in range(self.num_classes)]
         self.colors = [tuple(int(c * 255) for c in colorsys.hsv_to_rgb(*t))
                        for t in hsv]
@@ -145,16 +147,20 @@ class YOLOPredictor:
              confidence: Optional[float]):
         """The pipeline on a (B, H, W, 3) stack of pairs: the captured graph
         on the card, the eager pipeline on the CPU; host numpy results."""
-        image_hw = np.tile(np.asarray(rgb.shape[1:3], np.float32), (len(rgb), 1))
-        serve = detect_batch_graph if self.device.type == "cuda" else detect_batch
-        res = serve(
-            self.model, rgb, nir, image_hw,
-            conf_thres=self.confidence if confidence is None else confidence,
-            iou_thres=self.nms_iou, letterbox=self.letterbox_image,
-            max_det=self.max_det, pre_nms_topk=self.pre_nms_topk, nms=self.nms,
-            stem=self.stem)
-        res = type(res)(*(t.cpu().numpy() for t in res))
-        self._note_caps(res)
+        self.calls += 1
+        with span("predictor.call", request=self.calls):
+            image_hw = np.tile(np.asarray(rgb.shape[1:3], np.float32), (len(rgb), 1))
+            serve = detect_batch_graph if self.device.type == "cuda" else detect_batch
+            res = serve(
+                self.model, rgb, nir, image_hw,
+                conf_thres=self.confidence if confidence is None else confidence,
+                iou_thres=self.nms_iou, letterbox=self.letterbox_image,
+                max_det=self.max_det, pre_nms_topk=self.pre_nms_topk, nms=self.nms,
+                stem=self.stem)
+            # the first copy waits for the device's work
+            with span("predictor.copy_out"):
+                res = type(res)(*(t.cpu().numpy() for t in res))
+            self._note_caps(res)
         return res
 
     def _note_caps(self, res) -> None:

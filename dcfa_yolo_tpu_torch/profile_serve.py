@@ -8,12 +8,13 @@ split into its stages (host clock, a device synchronise after each stage),
 the eager call whole (no synchronise between stages) and the captured call
 whole (`detect_batch_graph`: input copied in, replay, outputs to the host),
 each the median of N calls; then a `torch.profiler` window over eager
-calls and one over a single replay: device busy share and the kernels with
-the most device time.  Last, the device time of the work the eager model
-does to its weights on every call, which the graph replays too: each
-conv's weight cast to the compute dtype and each eval BatchNorm's fold
-(`rsqrt`, scale, shift and their casts; kernel A's stem fold where it
-runs), captured alone in a graph of its own and timed with CUDA events.
+calls and one over a single replay: device busy share (the union of the
+device operations' intervals) and the kernels with the most device time.
+Last, the device time of the work the eager model does to its weights on
+every call, which the graph replays too: each conv's weight cast to the
+compute dtype and each eval BatchNorm's fold (`rsqrt`, scale, shift and
+their casts; kernel A's stem fold where it runs), captured alone in a
+graph of its own and timed with CUDA events.
 Needs a CUDA device; it does not fall back to the CPU.
 """
 
@@ -139,6 +140,7 @@ def main(argv=None) -> int:
     from dcfa_yolo_tpu_torch.infer.pipeline import (detect_batch, detect_batch_graph,
                                                     resolve_stem)
     from dcfa_yolo_tpu_torch.infer.predictor import YOLOPredictor
+    from dcfa_yolo_tpu_torch.utils.profiling import device_busy
 
     pred = YOLOPredictor(["object"], input_shape=(640, 640), phi="n",
                          confidence=0.001, nms_iou=0.5,
@@ -185,8 +187,7 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         events = _device_events(prof)
-        busy = sum(e.self_device_time_total for e in events) / 1e6  # us -> s
-        n_launch = sum(e.count for e in events)
+        busy, n_launch = device_busy(prof)
         lines.append(
             f"b{b} profiler: wall {wall / args.iters * 1e3:.3f} ms/call, device "
             f"busy {busy / args.iters * 1e3:.3f} ms/call ({busy / wall:.3f} of "
@@ -205,13 +206,13 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         events = _device_events(prof)
-        busy = sum(e.self_device_time_total for e in events) / 1e6
+        busy, n_launch = device_busy(prof)
         rsqrt = [e for e in events if "rsqrt" in e.key]
         if events:
             lines.append(
                 f"b{b} profiler, one replay: wall {wall * 1e3:.3f} ms, device busy "
                 f"{busy * 1e3:.3f} ms ({busy / wall:.3f} of wall, idle "
-                f"{1 - busy / wall:.3f}), {sum(e.count for e in events)} kernels and "
+                f"{1 - busy / wall:.3f}), {n_launch} kernels and "
                 f"copies; rsqrt kernels {sum(e.count for e in rsqrt)} taking "
                 f"{sum(e.self_device_time_total for e in rsqrt) / 1e3:.4f} ms")
         else:

@@ -7,8 +7,9 @@ phi='n', 640², bf16, b16 SGD-nesterov from the reference init (the
 It prints the wall time of one step split into forward, loss, backward and
 optimizer + EMA (host clock, a device synchronise after each stage; the
 median of N steps), then a `torch.profiler` window over whole steps: device
-busy share and the kernels with the most device time.  Needs a CUDA device;
-it does not fall back to the CPU.
+busy share (the union of the device operations' intervals) and the kernels
+with the most device time.  Needs a CUDA device; it does not fall back to
+the CPU.
 """
 
 from __future__ import annotations
@@ -72,6 +73,7 @@ def main(argv=None) -> int:
     from dcfa_yolo_tpu_torch.config import ModelConfig, TrainConfig
     from dcfa_yolo_tpu_torch.models.yolo import init_model
     from dcfa_yolo_tpu_torch.train.trainer import Trainer
+    from dcfa_yolo_tpu_torch.utils.profiling import device_busy
 
     tc = TrainConfig()
     cfg = ModelConfig(num_classes=1, phi="n", input_shape=(640, 640),
@@ -101,8 +103,7 @@ def main(argv=None) -> int:
     # self_device_time repeats the time of the kernels it launched
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in events) / 1e6  # us -> s
-    n_launch = sum(e.count for e in events)
+    busy, n_launch = device_busy(prof)
     lines.append(
         f"profiler: wall {wall / args.iters * 1e3:.3f} ms/step, device busy "
         f"{busy / args.iters * 1e3:.3f} ms/step ({busy / wall:.3f} of wall, idle "

@@ -49,6 +49,7 @@ from dcfa_yolo_tpu_torch.train.flat_opt import (FlatAdam, FlatEMA, FlatLayout,
                                                 FlatOptimizer, FlatSGD, flatten_into)
 from dcfa_yolo_tpu_torch.train.loss import LossBreakdown, YoloLoss
 from dcfa_yolo_tpu_torch.train.optim import Optimizer
+from dcfa_yolo_tpu_torch.utils.profiling import span
 
 STEP_MODES = ("auto", "fused", "split")
 
@@ -150,6 +151,7 @@ class Trainer:
         else:
             self.optimizer = Optimizer(train_cfg, self._named, train_bifpn)
             self.ema = ModelEMA(self.model, ema_updates)
+        self.steps = 0  # steps taken: the request id of their spans
 
     def put_batch(self, rgb, nir, gt_boxes, gt_labels, gt_mask) -> Batch:
         """Host arrays → a Batch on the device; the images go in the compute
@@ -216,12 +218,21 @@ class Trainer:
 
     def step_with_grad(self, batch: Batch, lr: float, freeze_backbone: bool = False):
         """`train_step`, also returning the flat gradient the update took
-        (over a group, the reduced one)."""
-        lb = self.loss(self.forward(batch), batch)
-        g, terms = self.reduce(self.backward(lb.total),
-                               torch.stack([t.detach() for t in lb]))
-        self.update(g, lr, freeze_backbone)
-        return LossBreakdown(*terms.unbind(0)), g
+        (over a group, the reduced one).  The step and each stage are spans
+        (`utils/profiling.py::span`)."""
+        self.steps += 1
+        with span("trainer.step", request=self.steps):
+            with span("trainer.forward"):
+                feats = self.forward(batch)
+            with span("trainer.loss"):
+                lb = self.loss(feats, batch)
+            with span("trainer.backward"):
+                grads = self.backward(lb.total)
+            with span("trainer.reduce"):
+                g, terms = self.reduce(grads, torch.stack([t.detach() for t in lb]))
+            with span("trainer.update"):
+                self.update(g, lr, freeze_backbone)
+            return LossBreakdown(*terms.unbind(0)), g
 
     @torch.no_grad()
     def eval_step(self, batch: Batch) -> LossBreakdown:

@@ -1,15 +1,21 @@
 """Timing utilities of the port (`dcfa_yolo_tpu/utils/profiling.py`): the
 H100's peaks and the bound they give, a device timer, the bench's
-steady-state timer, the training CLI's `StepTimer` and `trace`."""
+steady-state timer, the training CLI's `StepTimer` and `trace`, the
+program's spans (`span`, `recorded_spans`) and the device busy time of a
+profiler window (`device_busy`)."""
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import os
+import threading
 import time
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.autograd import _profiler_enabled
 
 # NVIDIA H100 SXM data sheet, at its 700 W power limit
 H100_BYTES_PER_S = 3.35e12  # HBM3
@@ -94,6 +100,127 @@ class StepTimer:
             "p95_ms": 1000 * xs[min(n - 1, int(n * 0.95))],
             "steps": n,
         }
+
+
+class SpanRecord(NamedTuple):
+    """One span as recorded: host times on `time.perf_counter_ns`'s clock,
+    the enclosing span's id on the same thread (None for a root) and the
+    request id (the root span's number: a predictor call, a train step, a
+    loader batch)."""
+
+    id: int
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: Optional[int]
+    request: Optional[int]
+
+
+SPAN_RING = 65536  # records kept
+
+
+class SpanRecorder:
+    """The spans a process recorded, in the order they closed, at most
+    `capacity` (the oldest go first), and each thread's stack of open
+    spans."""
+
+    def __init__(self, capacity: int = SPAN_RING) -> None:
+        self.records: "collections.deque[SpanRecord]" = collections.deque(maxlen=capacity)
+        self.ids = itertools.count(1)
+        self.local = threading.local()
+
+    def stack(self) -> List["_Span"]:
+        s = getattr(self.local, "stack", None)
+        if s is None:
+            s = self.local.stack = []
+        return s
+
+
+_RECORDER = SpanRecorder()
+
+
+class _Span:
+    """An open span: a `record_function` range in the profiler's trace and,
+    when it closes, a `SpanRecord`."""
+
+    __slots__ = ("name", "request", "id", "parent", "start_ns", "_range")
+
+    def __init__(self, name: str, request: Optional[int]) -> None:
+        self.name, self.request = name, request
+
+    def __enter__(self) -> "_Span":
+        from torch.autograd.profiler import record_function
+
+        stack = _RECORDER.stack()
+        self.id = next(_RECORDER.ids)
+        if stack:
+            self.parent, self.request = stack[-1].id, stack[-1].request
+        else:
+            self.parent = None
+            if self.request is None:
+                self.request = self.id
+        self._range = record_function(self.name)
+        self._range.__enter__()
+        stack.append(self)
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        end_ns = time.perf_counter_ns()
+        _RECORDER.stack().pop()
+        self._range.__exit__(*exc)
+        _RECORDER.records.append(SpanRecord(self.id, self.name, self.start_ns, end_ns,
+                                            self.parent, self.request))
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, request: Optional[int] = None):
+    """A context manager around one stage of the program.
+
+    While a `torch.profiler` session records in this process, it enters
+    `record_function(name)`, so the exported trace holds the span above the
+    kernels it launched, and on exit appends a `SpanRecord` to the
+    process's ring (`recorded_spans`).  A root span takes `request` as its
+    request id (its own id without one); a nested span takes its root's.
+    Otherwise it is one read of the profiler's state and a shared no-op.
+    It never waits for the device."""
+    if not _profiler_enabled():
+        return _OFF
+    return _Span(name, request)
+
+
+def recorded_spans() -> List[SpanRecord]:
+    """The spans recorded so far, in the order they closed (the newest
+    `SPAN_RING`)."""
+    return list(_RECORDER.records)
+
+
+def clear_spans() -> None:
+    """Drop the recorded spans."""
+    _RECORDER.records.clear()
+
+
+def device_busy(prof) -> Tuple[float, int]:
+    """Seconds of a `torch.profiler` window in which the device ran at
+    least one kernel, copy or set, and how many it ran.  Busy time is the
+    union of their intervals: operations that overlap (on two streams, or
+    a copy beside a kernel) count once, where a sum of self device times
+    counts them twice.  Device-side ranges of `record_function` are not
+    operations and are left out."""
+    from torch.autograd import DeviceType
+
+    iv = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False))
+    busy_us, end = 0.0, float("-inf")
+    for a, b in iv:
+        if b <= end:
+            continue
+        busy_us += b - max(a, end)
+        end = b
+    return busy_us / 1e6, len(iv)
 
 
 def _sync(device) -> None:
