@@ -4,7 +4,9 @@ Hopper GPU: builds the hand-written kernels from `dcfa_yolo_tpu_torch/csrc/`,
 holds each against its plain PyTorch version at its path's shapes, times it,
 then drives the paths of the port at phi='n' 640²: serving through
 `YOLOPredictor` in bf16 (kernels A and B), training through
-`Trainer.train_step` in bf16 (kernel C), backbone
+`Trainer.train_step` in bf16 (kernel C), the captured train step (one CUDA
+graph a step, kernel C inside, held bit-equal to the eager step at phi n
+and phi s), backbone
 rematerialization (`--remat`: kernel C in the forward and in the
 backward's recompute), the training CLI (`python -m
 dcfa_yolo_tpu_torch.train`, in-process) in float32 (kernel C's float32
@@ -730,6 +732,104 @@ def report_one_step_runs(steps, taps, gemms):
           + (", ".join(f"{k} ×{v}" for k, v in sorted(gemms.counts.items())) or "none"))
 
 
+def phase_train_graph(dev):
+    """The captured train step (`Trainer(capture="auto")`, one CUDA graph
+    a step) at b16 640² bf16, phi n (kernel C in the stem) and phi s (the
+    plain stem).  From [train]'s init, 6 steps on 6 seeded batches eagerly
+    (`capture="off"`) and on the captured route (2 eager steps, the capture
+    and its replay, 3 replays) under deterministic cuDNN: the loss terms of
+    every step and the whole state after the last `torch.equal`.  Then,
+    cuDNN free, each route on fresh trainers: 3 warm-up steps and 10 timed
+    ones on one device batch (host clock, ending in a synchronise), the
+    peak allocated memory over build, warm-up and timed steps, and kernel
+    C's launches a timed step.  Returns kernel C's launches by entry."""
+    import gc
+
+    from dcfa_yolo_tpu_torch.config import ModelConfig, TrainConfig
+    from dcfa_yolo_tpu_torch.models.yolo import init_model
+    from dcfa_yolo_tpu_torch.ops import cuda_stem_train
+    from dcfa_yolo_tpu_torch.profile_train import synthetic_batch
+    from dcfa_yolo_tpu_torch.train.trainer import WARMUP_STEPS, Trainer
+
+    tc = TrainConfig()
+    lr = tc.scaled_lrs()[0]
+    host = [synthetic_batch(16, (640, 640), tc.max_boxes, SEED + 200 + i) for i in range(6)]
+    launches = {"stem_train": 0}
+
+    def trainer(cfg, capture):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return Trainer(init_model(cfg, SEED, dev, train=True), tc, device=dev,
+                       capture=capture)
+
+    def steps(cfg, capture):
+        """The 6 steps: (loss terms a step, the state after, on the host;
+        graph_stats)."""
+        t = trainer(cfg, capture)
+        before = cuda_stem_train.LAUNCHES
+        terms = [torch.stack(list(t.train_step(t.put_batch(*hb), lr))).cpu() for hb in host]
+        torch.cuda.synchronize()
+        launches["stem_train"] += cuda_stem_train.LAUNCHES - before
+        st = t.state
+        state = {f"{what}.{k}": v.detach().cpu() for what, d in (
+            ("params", st.params), ("stats", st.batch_stats), ("ema", st.ema),
+            ("trace", st.opt_state["trace"])) for k, v in d.items()}
+        return terms, state, t.graph_stats()
+
+    def timed(cfg, capture, n=10):
+        """(ms a step, peak allocated bytes, kernel C launches a step)."""
+        t = trainer(cfg, capture)
+        b = t.put_batch(*host[0])
+        start = cuda_stem_train.LAUNCHES
+        for _ in range(WARMUP_STEPS + 1):
+            t.train_step(b, lr)
+        torch.cuda.synchronize()
+        before = cuda_stem_train.LAUNCHES
+        t0 = time.perf_counter()
+        for _ in range(n):
+            t.train_step(b, lr)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / n * 1e3
+        launches["stem_train"] += cuda_stem_train.LAUNCHES - start
+        return ms, torch.cuda.max_memory_allocated(), (cuda_stem_train.LAUNCHES - before) / n
+
+    for phi, c_launches in (("n", 2), ("s", 0)):
+        cfg = ModelConfig(num_classes=1, phi=phi, input_shape=(640, 640),
+                          compute_dtype="bfloat16")
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            eager_terms, eager_state, _ = steps(cfg, "off")
+            got_terms, got_state, stats = steps(cfg, "auto")
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = False
+        differ = [k for k in eager_state if not torch.equal(eager_state[k], got_state[k])]
+        same_terms = all(torch.equal(a, b) for a, b in zip(got_terms, eager_terms))
+        print(f"[train_graph] phi {phi} b16 640² bf16, {len(host)} steps from the same weights "
+              f"(deterministic cuDNN): captured route {stats}; loss terms of every step "
+              f"torch.equal to eager {same_terms}, state after ({len(eager_state)} entries) "
+              f"{not differ} ({len(differ)} differ); losses {float(got_terms[0][0]):.4f} -> "
+              f"{float(got_terms[-1][0]):.4f}")
+        check(stats == {"captures": 1, "replays": len(host) - WARMUP_STEPS,
+                        "eager": WARMUP_STEPS}, f"[train_graph] phi {phi}: routes {stats}")
+        check(same_terms and not differ,
+              f"[train_graph] phi {phi}: replay differs from eager: {differ[:5]}")
+        del eager_state, got_state
+        e_ms, e_peak, _ = timed(cfg, "off")
+        r_ms, r_peak, r_c = timed(cfg, "auto")
+        print(f"[train_graph] phi {phi}: ms a step (host clock, 10 steps on one device batch, "
+              f"a synchronise at the end) eager {e_ms:.2f}, replay {r_ms:.2f} "
+              f"({e_ms / r_ms:.2f}x); peak allocated eager {e_peak} B, captured {r_peak} B "
+              f"({(r_peak / e_peak - 1) * 100:+.2f}%); kernel C launches a replay {r_c:g} | {CARD}")
+        check(r_c == c_launches, f"[train_graph] phi {phi}: C launched {r_c} times a replay, "
+              f"expected {c_launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_remat(dev):
     """Backbone rematerialization (`ModelConfig.remat`, `torch.utils.
     checkpoint`) on the train path: phi='n' 640², [train]'s init (seed 0) and
@@ -740,16 +840,16 @@ def phase_remat(dev):
     Kernel C launches 4 times a step with remat (the forward and the
     backward's recompute, both stems; the backward itself differentiates
     the plain decomposition) and 2 without.  Then peak device memory and
-    step ms with and without remat in bf16 at b16 and b128, and at b64 if
-    b128 does not fit without remat.  Returns kernel C's launches by
-    entry."""
+    step ms (the captured step's replays) with and without remat in bf16 at
+    b16 and b128, and at b64 if b128 does not fit without remat.  Returns
+    kernel C's launches by entry."""
     import gc
 
     from dcfa_yolo_tpu_torch.config import ModelConfig, TrainConfig
     from dcfa_yolo_tpu_torch.models.yolo import init_model
     from dcfa_yolo_tpu_torch.ops import cuda_stem_train
     from dcfa_yolo_tpu_torch.profile_train import synthetic_batch
-    from dcfa_yolo_tpu_torch.train.trainer import Trainer
+    from dcfa_yolo_tpu_torch.train.trainer import WARMUP_STEPS, Trainer
 
     tc = TrainConfig()
     lr = tc.scaled_lrs()[0]
@@ -812,7 +912,9 @@ def phase_remat(dev):
 
     def measure(b, remat, steps=2):
         """Peak memory (GiB) and median step ms (host clock, each step ending
-        in a synchronise) of bf16 steps at batch b, None if it does not fit."""
+        in a synchronise) of bf16 steps at batch b, None if it does not fit;
+        the steps timed are the captured step's replays (`Trainer`'s warm-up
+        and capture first)."""
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -820,11 +922,12 @@ def phase_remat(dev):
             t = trainer("bfloat16", remat)
             bt = t.put_batch(*(np.concatenate([a] * (b // 16)) for a in host))
             ms = []
-            for _ in range(steps + 1):
+            for _ in range(steps + WARMUP_STEPS + 1):
                 t0 = time.perf_counter()
                 counted(lambda: t.train_step(bt, lr))
                 ms.append((time.perf_counter() - t0) * 1e3)
-            return torch.cuda.max_memory_allocated() / 2**30, float(np.median(ms[1:]))
+            return (torch.cuda.max_memory_allocated() / 2**30,
+                    float(np.median(ms[WARMUP_STEPS + 1:])))
         except torch.cuda.OutOfMemoryError:
             return None
 
@@ -839,8 +942,8 @@ def phase_remat(dev):
                      else f"peak {m[0]:.2f} GiB, {m[1]:.1f} ms/step")
     for b, res in sizes.items():
         print(f"[remat] bf16 b{b} 640²: without remat {fmt(res[False])}; with remat "
-              f"{fmt(res[True])} (peak torch.cuda.max_memory_allocated; median of 2 steps "
-              f"after one, host clock) | {CARD}")
+              f"{fmt(res[True])} (peak torch.cuda.max_memory_allocated; median of 2 "
+              f"replays after the warm-up and the capture, host clock) | {CARD}")
         check(res[True] is not None, f"[remat] b{b} does not fit even with remat")
     return launches
 
@@ -2759,6 +2862,8 @@ def main() -> int:
         train_stem_f32_t = phase_train_stem(dev, torch.float32)
         train_n = phase_train(dev)
         launches["stem_train"] = train_n["stem_train"]
+        for name, n in phase_train_graph(dev).items():
+            launches[name] += n
         remat_n = phase_remat(dev)
         data = train_data(32)
         try:

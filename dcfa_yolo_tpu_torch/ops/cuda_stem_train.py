@@ -55,6 +55,15 @@ _ENTRIES = {torch.bfloat16: "stem_train_bf16", torch.float32: "stem_train_f32"}
 _F32_LAST_STREAM: dict = {}
 
 
+def order_f32(stream: torch.cuda.Stream) -> None:
+    """Before a float32 launch (or a graph that holds one) on `stream`: wait
+    for the stream of the last one on its device, and become it."""
+    last = _F32_LAST_STREAM.get(stream.device.index)
+    if last is not None and last != stream:
+        stream.wait_stream(last)
+    _F32_LAST_STREAM[stream.device.index] = stream
+
+
 def resolve_train_stem(backend: str, c_out: int, hw: Tuple[int, int],
                        dtype: torch.dtype, device: torch.device) -> str:
     """'kernel' or 'plain' for the train-mode stem.
@@ -176,11 +185,8 @@ def stem_train(x: torch.Tensor, weight: torch.Tensor, group=None
     lib = _build.load_library()
     entry = _ENTRIES[x.dtype]
     stream = torch.cuda.current_stream(x.device)
-    if x.dtype == torch.float32:
-        last = _F32_LAST_STREAM.get(x.device.index)
-        if last is not None and last != stream:
-            stream.wait_stream(last)
-        _F32_LAST_STREAM[x.device.index] = stream
+    if x.dtype == torch.float32 and not torch.cuda.is_current_stream_capturing():
+        order_f32(stream)  # a graph's launch is ordered where it is replayed
     n_cta = stem_core.num_ctas(
         b, h, w, _build.stem_kernel_info(entry, x.device)["resident_ctas"])
     partials = torch.empty((n_cta, STEM_CO, 2), dtype=torch.float64,

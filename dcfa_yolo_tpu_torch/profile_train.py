@@ -6,9 +6,10 @@ phi='n', 640², bf16, b16 SGD-nesterov from the reference init (the
 
 It prints the wall time of one step split into forward, loss, backward and
 optimizer + EMA (host clock, a device synchronise after each stage; the
-median of N steps), then a `torch.profiler` window over whole steps: device
-busy share (the union of the device operations' intervals) and the kernels
-with the most device time.  Needs a CUDA device; it does not fall back to
+median of N steps), then a `torch.profiler` window over whole steps (the
+captured step's replays, `train/trainer.py`): device busy share (the union
+of the device operations' intervals) and the kernels with the most device
+time.  Needs a CUDA device; it does not fall back to
 the CPU.
 """
 

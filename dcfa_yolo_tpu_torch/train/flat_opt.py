@@ -17,6 +17,13 @@ the BN statistics.  The masks come once from the parameter names
 `ema.py` apply per tensor, and the clip's global norm is taken over the
 same per-parameter norms, so on the CPU the flat tail is bit-equal to the
 per-tensor path (`Trainer(flat_tail=False)`).
+
+The values that change from step to step (the learning rate, the EMA's d
+and 1 − d, Adam's bias corrections) are 0-dim float32 tensors on the
+vectors' device, written by `advance` before each step (`fill_`, the value
+rounded to float32 as the Python-float path rounds it); `apply` launches
+the step's kernels and reads them there, so a CUDA graph captured around
+`apply` serves every step.
 """
 
 from __future__ import annotations
@@ -125,15 +132,42 @@ def global_norm(g: torch.Tensor, factors: FlatFactors,
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(views)))
 
 
+def adam_bias(count: int, b1: float) -> Tuple[float, float]:
+    """Adam's bias corrections 1 − β₁ᵗ and 1 − β₂ᵗ at step `count`, in
+    float32 arithmetic."""
+    f32 = np.float32
+    c = f32(count)
+    return float(f32(1.0) - f32(b1) ** c), float(f32(1.0) - f32(ADAM_B2) ** c)
+
+
+def scalar(device) -> torch.Tensor:
+    """A 0-dim float32 tensor on `device`, for a per-step value."""
+    return torch.zeros((), dtype=torch.float32, device=device)
+
+
 @torch.no_grad()
 def flat_update(cfg: TrainConfig, factors: FlatFactors, g: torch.Tensor,
                 p: torch.Tensor, opt: Union[FlatSGD, FlatAdam],
                 freeze_backbone: bool = False):
     """One optimizer step on flat vectors: returns (updates, opt) with
-    `new_p = p + lr · updates` (the scale(−1) applied).  The state tensors
-    of `opt` are updated in place; `g` is not modified.  In the freeze
-    phase the backbones' entries take no step, count in no norm and keep a
-    zero state."""
+    `new_p = p + lr · updates` (the scale(−1) applied) and Adam's count
+    advanced.  The state tensors of `opt` are updated in place; `g` is not
+    modified.  In the freeze phase the backbones' entries take no step,
+    count in no norm and keep a zero state."""
+    bias = None
+    if isinstance(opt, FlatAdam):
+        opt = opt._replace(count=opt.count + 1)
+        bias = adam_bias(opt.count, cfg.momentum)
+    return flat_updates(cfg, factors, g, p, opt, freeze_backbone, bias), opt
+
+
+@torch.no_grad()
+def flat_updates(cfg: TrainConfig, factors: FlatFactors, g: torch.Tensor,
+                 p: torch.Tensor, opt: Union[FlatSGD, FlatAdam],
+                 freeze_backbone: bool = False, bias=None) -> torch.Tensor:
+    """`flat_update`'s kernels alone: the updates, with Adam's bias
+    corrections `bias` given (floats, or 0-dim tensors written before the
+    step) and its count left as it is."""
     live = factors.live_frozen if freeze_backbone else None
     if live is not None:
         g = g * live
@@ -151,13 +185,9 @@ def flat_update(cfg: TrainConfig, factors: FlatFactors, g: torch.Tensor,
             opt.trace.mul_(live)
     else:
         b1, b2 = cfg.momentum, ADAM_B2
-        opt = opt._replace(count=opt.count + 1)
         opt.mu.mul_(b1).add_(g * (1.0 - b1))
         opt.nu.mul_(b2).add_((g * g) * (1.0 - b2))
-        f32 = np.float32
-        c = f32(opt.count)
-        bc1 = float(f32(1.0) - f32(b1) ** c)
-        bc2 = float(f32(1.0) - f32(b2) ** c)
+        bc1, bc2 = bias
         upd = (opt.mu / bc1) / ((opt.nu / bc2).sqrt_().add_(ADAM_EPS))
         if live is not None:
             opt.mu.mul_(live)
@@ -165,7 +195,7 @@ def flat_update(cfg: TrainConfig, factors: FlatFactors, g: torch.Tensor,
     upd = upd * factors.live_bifpn
     if live is not None:
         upd = upd * live
-    return upd.neg_(), opt
+    return upd.neg_()
 
 
 @torch.no_grad()
@@ -173,7 +203,13 @@ def flat_ema(ema_vec: torch.Tensor, new_vec: torch.Tensor, updates: int,
              decay: float, tau: float) -> None:
     """The EMA ramp on one flat vector, in place (`ema.py::ModelEMA.update`);
     `updates` is the counter after this step's increment."""
-    d, one_minus_d = ema_decay(updates, decay, tau)
+    ema_step(ema_vec, new_vec, *ema_decay(updates, decay, tau))
+
+
+@torch.no_grad()
+def ema_step(ema_vec: torch.Tensor, new_vec: torch.Tensor, d, one_minus_d) -> None:
+    """ema ← d · ema + (1 − d) · new, in place; d and 1 − d floats or 0-dim
+    tensors."""
     ema_vec.mul_(d).add_(new_vec * one_minus_d)
 
 
@@ -192,6 +228,10 @@ class FlatOptimizer:
         self.factors = build_factors(named_params, train_bifpn, flat.device)
         self.names = self.factors.layout.names
         self.opt = init_flat_opt(cfg, flat.numel(), flat.device)
+        self.lr = scalar(flat.device)
+        self.bias = None  # Adam's bias corrections
+        if cfg.optimizer_type == "adam":
+            self.bias = (scalar(flat.device), scalar(flat.device))
         views = self.factors.layout.views
         if cfg.optimizer_type == "sgd":
             self.trace = views(self.opt.trace)
@@ -219,12 +259,27 @@ class FlatOptimizer:
             for name, t in zip(self.names, views):
                 t.copy_(state[key][name])
 
-    @torch.no_grad()
     def step(self, g: torch.Tensor, lr: float, freeze_backbone: bool = False) -> None:
         """One step from the flat gradient `g` (float32, `flat`'s layout)."""
-        upd, self.opt = flat_update(self.cfg, self.factors, g, self.flat, self.opt,
-                                    freeze_backbone)
-        self.flat.add_(upd.mul_(lr))
+        self.advance(lr)
+        self.apply(g, freeze_backbone)
+
+    def advance(self, lr: float) -> None:
+        """A step's host half: the learning rate and, for Adam, the count
+        and its bias corrections, written to the device scalars."""
+        self.lr.fill_(lr)
+        if self.bias is not None:
+            self.opt = self.opt._replace(count=self.opt.count + 1)
+            for t, v in zip(self.bias, adam_bias(self.opt.count, self.cfg.momentum)):
+                t.fill_(v)
+
+    @torch.no_grad()
+    def apply(self, g: torch.Tensor, freeze_backbone: bool = False) -> None:
+        """A step's kernels, after `advance`: they read the scalars on the
+        device and change no host state, so they can be captured."""
+        upd = flat_updates(self.cfg, self.factors, g, self.flat, self.opt,
+                           freeze_backbone, self.bias)
+        self.flat.add_(upd.mul_(self.lr))
 
 
 class FlatEMA:
@@ -237,6 +292,7 @@ class FlatEMA:
         self.updates = updates
         self.live = (params[1], stats[1])
         self.vecs = (params[1].clone(), stats[1].clone())
+        self.d, self.one_minus_d = scalar(params[1].device), scalar(params[1].device)
         where = {}
         for (layout, _), vec in zip((params, stats), self.vecs):
             where.update(zip(layout.names, layout.views(vec)))
@@ -245,9 +301,22 @@ class FlatEMA:
     def update(self, model=None, decay: float = 0.9999, tau: float = 2000.0) -> None:
         """One EMA step from the live vectors (`model` is not read: its
         state is the vectors)."""
+        self.advance(decay, tau)
+        self.apply()
+
+    def advance(self, decay: float = 0.9999, tau: float = 2000.0) -> None:
+        """A step's host half: the update count, and d(u) and 1 − d(u)
+        written to the device scalars."""
         self.updates += 1
+        for t, v in zip((self.d, self.one_minus_d), ema_decay(self.updates, decay, tau)):
+            t.fill_(v)
+
+    @torch.no_grad()
+    def apply(self) -> None:
+        """A step's kernels, after `advance` (capturable, as
+        `FlatOptimizer.apply`)."""
         for ema, live in zip(self.vecs, self.live):
-            flat_ema(ema, live, self.updates, decay, tau)
+            ema_step(ema, live, self.d, self.one_minus_d)
 
     @torch.no_grad()
     def load(self, variables: Dict[str, torch.Tensor], updates: int) -> None:

@@ -28,13 +28,23 @@ global batch), in the JAX Trainer's two step modes:
   (`trainer.py:275-277`).
 After every step the replicas are equal.  No DDP wrapper: it would broadcast
 rank 0's BN statistics and average per-rank-normalised losses.
+
+On one CUDA device with the flat tail (`capture="auto"`), the step is one
+CUDA graph: its shapes are static and it makes no host synchronisation, so
+after two eager steps of a key (the batch's shapes and dtypes, the freeze
+phase, the stem graph) the third call captures the device work (forward,
+loss, backward, ravel, optimizer and EMA: `_capture`) and replays it,
+and every later call of the key copies its batch into the graph's inputs,
+writes the step's scalars (`flat_opt.py`) and replays.  A new key drops
+the graph and warms up again.  The CPU, a process group and the per-tensor
+tail run the eager step.
 """
 
 from __future__ import annotations
 
 import copy
 import warnings
-from typing import Dict, NamedTuple, Sequence, Union
+from typing import Dict, NamedTuple, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -43,6 +53,7 @@ import torch.distributed as dist
 from dcfa_yolo_tpu_torch.config import TrainConfig
 from dcfa_yolo_tpu_torch.device import resolve_device
 from dcfa_yolo_tpu_torch.models.yolo import _DTYPES
+from dcfa_yolo_tpu_torch.ops import cuda_stem_train
 from dcfa_yolo_tpu_torch.parallel.mesh import broadcast_state, world_size
 from dcfa_yolo_tpu_torch.train.ema import ModelEMA
 from dcfa_yolo_tpu_torch.train.flat_opt import (FlatAdam, FlatEMA, FlatLayout,
@@ -52,6 +63,8 @@ from dcfa_yolo_tpu_torch.train.optim import Optimizer
 from dcfa_yolo_tpu_torch.utils.profiling import span
 
 STEP_MODES = ("auto", "fused", "split")
+CAPTURE_MODES = ("auto", "off")
+WARMUP_STEPS = 2  # eager steps of a key before its step is captured
 
 
 class Batch(NamedTuple):
@@ -82,6 +95,28 @@ class FlatTrainState(NamedTuple):
     ema_updates: int
 
 
+def graph_route(capture: str, device: torch.device, group, flat_tail: bool) -> bool:
+    """Whether a trainer replays its step from a CUDA graph: `capture`
+    'auto' on a CUDA device, with no process group (the data-parallel step
+    keeps its all-reduces and kernel C's host check) and the flat tail
+    (whose per-step values live on the device)."""
+    return capture == "auto" and device.type == "cuda" and group is None and flat_tail
+
+
+class _StepGraph(NamedTuple):
+    """One captured step: its key, the graph, the static inputs it reads
+    (the capturing call's batch), its static outputs (the stacked loss
+    terms and the flat gradient) and kernel C's launches it holds (all,
+    float32)."""
+
+    key: tuple
+    graph: "torch.cuda.CUDAGraph"
+    inputs: Batch
+    terms: torch.Tensor
+    grad: torch.Tensor
+    launches: Tuple[int, int]
+
+
 class Trainer:
     """Owns the model in train mode, the optimizer state and the EMA.
 
@@ -98,14 +133,19 @@ class Trainer:
     feeds it its slice of each global batch (`parallel/mesh.py::
     shard_batch`).  The replicas start from rank 0's weights.
     `criterion`: a loss with YoloLoss's call and a `group` attribute (the
-    trainer sets it); default `YoloLoss`."""
+    trainer sets it); default `YoloLoss`.
+    `capture`: 'auto' replays the step from a CUDA graph wherever it can
+    (module docstring: a CUDA device, no group, the flat tail), 'off' runs
+    every step eagerly."""
 
     def __init__(self, model, train_cfg: TrainConfig = TrainConfig(),
                  device="cuda", ema_updates: int = 0, train_bifpn: bool = True,
                  step_mode: str = "auto", group=None, flat_tail: bool = True,
-                 criterion=None):
+                 criterion=None, capture: str = "auto"):
         if step_mode not in STEP_MODES:
             raise ValueError(f"step_mode must be one of {STEP_MODES}, got {step_mode!r}")
+        if capture not in CAPTURE_MODES:
+            raise ValueError(f"capture must be one of {CAPTURE_MODES}, got {capture!r}")
         self.device = resolve_device(device)
         self.model = model.to(self.device).train()
         self.cfg = model.cfg
@@ -152,6 +192,10 @@ class Trainer:
             self.optimizer = Optimizer(train_cfg, self._named, train_bifpn)
             self.ema = ModelEMA(self.model, ema_updates)
         self.steps = 0  # steps taken: the request id of their spans
+        self.graph_route = graph_route(capture, self.device, group, flat_tail)
+        self._graph = None        # the captured step (`_StepGraph`) of the last key
+        self._warm = (None, 0)    # (key, its eager steps in a row)
+        self._counts = {"captures": 0, "replays": 0, "eager": 0}
 
     def put_batch(self, rgb, nir, gt_boxes, gt_labels, gt_mask) -> Batch:
         """Host arrays → a Batch on the device; the images go in the compute
@@ -212,27 +256,117 @@ class Trainer:
     def train_step(self, batch: Batch, lr: float, freeze_backbone: bool = False
                    ) -> LossBreakdown:
         """One step.  Returns the loss terms as device scalars (no host
-        synchronisation); over a group, the global batch's (fused: the sum
-        of the ranks' parts; split: the ranks' mean)."""
-        return self.step_with_grad(batch, lr, freeze_backbone)[0]
+        synchronisation), the caller's own (a later step never overwrites
+        them); over a group, the global batch's (fused: the sum of the
+        ranks' parts; split: the ranks' mean).  On the captured route the
+        batch passed to the call that captures the step becomes the graph's
+        input, which every later step of its key overwrites with its own
+        batch: a caller that reads that batch after the step must copy it
+        first."""
+        return self._step(batch, lr, freeze_backbone, False)[0]
 
     def step_with_grad(self, batch: Batch, lr: float, freeze_backbone: bool = False):
         """`train_step`, also returning the flat gradient the update took
         (over a group, the reduced one).  The step and each stage are spans
-        (`utils/profiling.py::span`)."""
+        (`utils/profiling.py::span`); on the captured route `trainer.capture`
+        holds the stages of the call that captures, and `trainer.replay`
+        each replay."""
+        return self._step(batch, lr, freeze_backbone, True)
+
+    def graph_stats(self) -> Dict[str, int]:
+        """Steps so far by route: graphs captured, replays, eager steps."""
+        return dict(self._counts)
+
+    def _step(self, batch: Batch, lr: float, freeze_backbone: bool, want_grad: bool):
         self.steps += 1
         with span("trainer.step", request=self.steps):
-            with span("trainer.forward"):
-                feats = self.forward(batch)
-            with span("trainer.loss"):
-                lb = self.loss(feats, batch)
-            with span("trainer.backward"):
-                grads = self.backward(lb.total)
-            with span("trainer.reduce"):
-                g, terms = self.reduce(grads, torch.stack([t.detach() for t in lb]))
-            with span("trainer.update"):
-                self.update(g, lr, freeze_backbone)
-            return LossBreakdown(*terms.unbind(0)), g
+            g = self._graph
+            if self.graph_route:
+                key = (tuple((tuple(t.shape), t.dtype) for t in batch),
+                       bool(freeze_backbone), self.train_stem)
+                if g is not None and g.key != key:
+                    # drop the graph, its inputs and its memory pool
+                    self._graph = g = None
+                if g is None:
+                    n = self._warm[1] + 1 if self._warm[0] == key else 1
+                    if n > WARMUP_STEPS:
+                        with span("trainer.capture"):
+                            g = self._graph = self._capture(key, batch, freeze_backbone)
+                    else:
+                        self._warm = (key, n)
+            if g is None:
+                self._counts["eager"] += 1
+                terms, grad = self._stages(
+                    batch, lambda flat: self.update(flat, lr, freeze_backbone))
+                return LossBreakdown(*terms.unbind(0)), grad
+            with span("trainer.replay"):
+                return self._replay(g, batch, lr, want_grad)
+
+    def _stages(self, batch: Batch, update):
+        """Forward, loss, backward, reduce and `update(flat gradient)`, each
+        in its span: (stacked loss terms, flat gradient)."""
+        with span("trainer.forward"):
+            feats = self.forward(batch)
+        with span("trainer.loss"):
+            lb = self.loss(feats, batch)
+        with span("trainer.backward"):
+            grads = self.backward(lb.total)
+        with span("trainer.reduce"):
+            g, terms = self.reduce(grads, torch.stack([t.detach() for t in lb]))
+        with span("trainer.update"):
+            update(g)
+        return terms, g
+
+    def _capture(self, key, batch: Batch, freeze_backbone: bool) -> _StepGraph:
+        """Capture the step's device work on `batch` into a new graph with a
+        memory pool of its own: the stages, with the optimizer's and the
+        EMA's kernels (`apply`) as the update; their host halves (`advance`)
+        run before each replay.  A capture records and runs nothing, so no
+        state moves; kernel C's counters are put back (a replay adds what
+        the graph holds).  A capture that fails raises: nothing falls back
+        to the eager step.
+
+        cuBLAS keeps a workspace (and cuBLASLt another) for each stream it
+        runs on, two 32 MiB blocks with torch 2.11 on the H100: the capture
+        stream's would sit beside the current stream's at the capture's
+        peak.  So the workspaces are dropped before the capture, which
+        allocates its own in the graph's pool, and after it: the graph keeps
+        that memory, and the current stream allocates its own again at its
+        next product."""
+        def update(g):
+            self.optimizer.apply(g, freeze_backbone)
+            self.ema.apply()
+
+        before = (cuda_stem_train.LAUNCHES, cuda_stem_train.LAUNCHES_F32)
+        graph = torch.cuda.CUDAGraph()
+        torch._C._cuda_clearCublasWorkspaces()
+        try:
+            with torch.cuda.graph(graph):
+                terms, g = self._stages(batch, update)
+        finally:
+            held = (cuda_stem_train.LAUNCHES - before[0],
+                    cuda_stem_train.LAUNCHES_F32 - before[1])
+            cuda_stem_train.LAUNCHES, cuda_stem_train.LAUNCHES_F32 = before
+            torch._C._cuda_clearCublasWorkspaces()
+        self._counts["captures"] += 1
+        return _StepGraph(key, graph, batch, terms, g, held)
+
+    def _replay(self, g: _StepGraph, batch: Batch, lr: float, want_grad: bool):
+        """Copy `batch` into the graph's inputs, write the step's scalars,
+        replay, and return copies of the outputs."""
+        for dst, src in zip(g.inputs, batch):
+            if dst is not src:
+                dst.copy_(src)
+        self.optimizer.advance(lr)
+        self.ema.advance(self.tc.ema_decay, self.tc.ema_tau)
+        if g.launches[1]:
+            cuda_stem_train.order_f32(torch.cuda.current_stream(self.device))
+        g.graph.replay()
+        cuda_stem_train.LAUNCHES += g.launches[0]
+        cuda_stem_train.LAUNCHES_F32 += g.launches[1]
+        self._counts["replays"] += 1
+        return (LossBreakdown(*g.terms.clone().unbind(0)),
+                g.grad.clone() if want_grad else None)
 
     @torch.no_grad()
     def eval_step(self, batch: Batch) -> LossBreakdown:

@@ -223,6 +223,7 @@ def test_span_names_are_not_the_benchmarks_labels():
         names |= set(re.findall(r'\bspan\("([^"]+)"', f.read_text()))
     assert names == {"predictor.call", "predictor.copy_out", "pipeline.copy_in",
                      "pipeline.capture", "pipeline.replay", "trainer.step", *STAGES,
+                     "trainer.capture", "trainer.replay",
                      "device_aug.batch", "device_aug.sample", "device_aug.program"}
     assert not names & BENCH_LABELS
 
