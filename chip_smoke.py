@@ -732,13 +732,16 @@ def report_one_step_runs(steps, taps, gemms):
           + (", ".join(f"{k} ×{v}" for k, v in sorted(gemms.counts.items())) or "none"))
 
 
-def phase_train_graph(dev):
+def phase_train_graph(dev, phis=(("n", 2), ("s", 0), ("x", 0))):
     """The captured train step (`Trainer(capture="auto")`, one CUDA graph
-    a step) at b16 640² bf16, phi n (kernel C in the stem) and phi s (the
-    plain stem).  From [train]'s init, 6 steps on 6 seeded batches eagerly
-    (`capture="off"`) and on the captured route (2 eager steps, the capture
-    and its replay, 3 replays) under deterministic cuDNN: the loss terms of
-    every step and the whole state after the last `torch.equal`.  Then,
+    a step) at b16 640² bf16, for each (phi, kernel C's launches a step)
+    of `phis`: phi n (kernel C in the stem), phi s (the plain stem) and
+    phi x (the plain stem at 80 channels, the depth-3 stacks, the largest
+    step and graph pool).  From [train]'s init, 6 steps on 6 seeded
+    batches eagerly (`capture="off"`) and on the captured route (2 eager
+    steps, the capture and its replay, 3 replays) under deterministic
+    cuDNN: the loss terms of every step and the whole state after the last
+    `torch.equal`.  Then,
     cuDNN free, each route on fresh trainers: 3 warm-up steps and 10 timed
     ones on one device batch (host clock, ending in a synchronise), the
     peak allocated memory over build, warm-up and timed steps, and kernel
@@ -794,7 +797,7 @@ def phase_train_graph(dev):
         launches["stem_train"] += cuda_stem_train.LAUNCHES - start
         return ms, torch.cuda.max_memory_allocated(), (cuda_stem_train.LAUNCHES - before) / n
 
-    for phi, c_launches in (("n", 2), ("s", 0)):
+    for phi, c_launches in phis:
         cfg = ModelConfig(num_classes=1, phi=phi, input_shape=(640, 640),
                           compute_dtype="bfloat16")
         torch.backends.cudnn.deterministic = True

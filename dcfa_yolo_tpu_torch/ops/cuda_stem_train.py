@@ -42,7 +42,7 @@ import torch.nn.functional as F
 from dcfa_yolo_tpu_torch.device import kernels_supported
 from dcfa_yolo_tpu_torch.ops import _build, stem_core
 from dcfa_yolo_tpu_torch.ops.norm import batch_moments
-from dcfa_yolo_tpu_torch.parallel.mesh import world_size
+from dcfa_yolo_tpu_torch.parallel.mesh import reduce_in_place, world_size
 
 STEM_CO = 16  # the kernel is specialised to phi='n''s 16 stem channels
 LAUNCHES = 0      # kernel launches, both dtypes
@@ -114,10 +114,7 @@ def reduce_sums(totals: torch.Tensor, b: int, group) -> torch.Tensor:
     that empty or unequal ones (which a JAX sharding cannot make) raise on
     every rank at once, none left waiting: Σb² · W = (Σb)² only where all
     are equal."""
-    import torch.distributed as dist
-
-    buf = torch.cat([totals, totals.new_tensor([[b, b * b]])])
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    buf = reduce_in_place(torch.cat([totals, totals.new_tensor([[b, b * b]])]), group)
     n, n2 = buf[STEM_CO].tolist()
     if n == 0 or n2 * world_size(group) != n * n:
         raise ValueError("the train stem across ranks needs equal, non-empty "

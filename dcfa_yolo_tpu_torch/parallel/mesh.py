@@ -7,10 +7,11 @@ lets GSPMD insert the reductions.  The port runs one process a rank instead
 (torchrun, or `run_ranks` below): each holds a full replica, loads its
 even slice of every global batch (`shard_batch`) and reduces across the
 group where the JAX program would (`all_reduce_sum` / `all_reduce_mean`,
-differentiable).  No DDP wrapper: the trainer reduces its flat gradient
-itself (`train/trainer.py`), because DDP would broadcast rank 0's BN
-statistics and average per-rank-normalised losses, neither of which is the
-JAX step.
+differentiable; every all-reduce of the train step goes through
+`reduce_in_place`, which counts them).  No DDP wrapper: the trainer
+reduces its flat gradient itself (`train/trainer.py`), because DDP would
+broadcast rank 0's BN statistics and average per-rank-normalised losses,
+neither of which is the JAX step.
 
 `nccl` is the backend on CUDA, `gloo` on the CPU.  Gloo also reduces CUDA
 tensors (through host copies), which lets several ranks share one card.
@@ -31,6 +32,8 @@ from typing import Any, Callable, Iterable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 from torch import nn
+
+from dcfa_yolo_tpu_torch.utils.profiling import count
 
 TIMEOUT_S = 300.0  # `run_ranks`: a rank's collectives and the whole call
 
@@ -136,9 +139,19 @@ def broadcast_state(module: nn.Module, group, src: int = 0) -> None:
         dist.broadcast(t, src, group=group)
 
 
-def _reduce(t: torch.Tensor, group, mean: bool) -> torch.Tensor:
-    t = t.clone(memory_format=torch.contiguous_format)
+def reduce_in_place(t: torch.Tensor, group) -> torch.Tensor:
+    """`t` summed over the ranks of `group`, in place; returns `t`.  While
+    a profiler records, each call adds one to the counter
+    `trainer.collectives` and its bytes to `trainer.collective_bytes`
+    (`utils/profiling.py::count`)."""
+    count("trainer.collectives")
+    count("trainer.collective_bytes", t.numel() * t.element_size())
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t
+
+
+def _reduce(t: torch.Tensor, group, mean: bool) -> torch.Tensor:
+    t = reduce_in_place(t.clone(memory_format=torch.contiguous_format), group)
     return t.div_(world_size(group)) if mean else t
 
 

@@ -48,19 +48,18 @@ from typing import Dict, NamedTuple, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from dcfa_yolo_tpu_torch.config import TrainConfig
 from dcfa_yolo_tpu_torch.device import resolve_device
 from dcfa_yolo_tpu_torch.models.yolo import _DTYPES
 from dcfa_yolo_tpu_torch.ops import cuda_stem_train
-from dcfa_yolo_tpu_torch.parallel.mesh import broadcast_state, world_size
+from dcfa_yolo_tpu_torch.parallel.mesh import broadcast_state, reduce_in_place, world_size
 from dcfa_yolo_tpu_torch.train.ema import ModelEMA
 from dcfa_yolo_tpu_torch.train.flat_opt import (FlatAdam, FlatEMA, FlatLayout,
                                                 FlatOptimizer, FlatSGD, flatten_into)
 from dcfa_yolo_tpu_torch.train.loss import LossBreakdown, YoloLoss
 from dcfa_yolo_tpu_torch.train.optim import Optimizer
-from dcfa_yolo_tpu_torch.utils.profiling import span
+from dcfa_yolo_tpu_torch.utils.profiling import count, span
 
 STEP_MODES = ("auto", "fused", "split")
 CAPTURE_MODES = ("auto", "off")
@@ -106,8 +105,8 @@ def graph_route(capture: str, device: torch.device, group, flat_tail: bool) -> b
 class _StepGraph(NamedTuple):
     """One captured step: its key, the graph, the static inputs it reads
     (the capturing call's batch), its static outputs (the stacked loss
-    terms and the flat gradient) and kernel C's launches it holds (all,
-    float32)."""
+    terms and the flat gradient), kernel C's launches it holds (all,
+    float32) and the bytes its private memory pool holds."""
 
     key: tuple
     graph: "torch.cuda.CUDAGraph"
@@ -115,6 +114,15 @@ class _StepGraph(NamedTuple):
     terms: torch.Tensor
     grad: torch.Tensor
     launches: Tuple[int, int]
+    pool_bytes: int
+
+
+def pool_bytes(graph: "torch.cuda.CUDAGraph") -> int:
+    """Bytes of the device memory segments held by `graph`'s private
+    pool."""
+    pool = tuple(graph.pool())
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get("segment_pool_id", ())) == pool)
 
 
 class Trainer:
@@ -231,8 +239,7 @@ class Trainer:
         parts = [g, terms.float()]
         if self.step_mode == "split":
             parts.append(self._s_layout.ravel(self._buffers))
-        buf = torch.cat(parts)
-        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self.group)
+        buf = reduce_in_place(torch.cat(parts), self.group)
         n, k = g.numel(), terms.numel()
         if self.step_mode == "split":
             buf.div_(self.world)
@@ -349,11 +356,14 @@ class Trainer:
             cuda_stem_train.LAUNCHES, cuda_stem_train.LAUNCHES_F32 = before
             torch._C._cuda_clearCublasWorkspaces()
         self._counts["captures"] += 1
-        return _StepGraph(key, graph, batch, terms, g, held)
+        return _StepGraph(key, graph, batch, terms, g, held, pool_bytes(graph))
 
     def _replay(self, g: _StepGraph, batch: Batch, lr: float, want_grad: bool):
         """Copy `batch` into the graph's inputs, write the step's scalars,
-        replay, and return copies of the outputs."""
+        replay, and return copies of the outputs.  While a profiler
+        records, the counter `trainer.graph_pool_bytes` holds the graph's
+        pool size."""
+        count("trainer.graph_pool_bytes", g.pool_bytes, total=True)
         for dst, src in zip(g.inputs, batch):
             if dst is not src:
                 dst.copy_(src)
@@ -380,8 +390,7 @@ class Trainer:
                             batch.gt_mask)
         if self.group is None:
             return lb
-        terms = torch.stack(list(lb)).float()
-        dist.all_reduce(terms, op=dist.ReduceOp.SUM, group=self.group)
+        terms = reduce_in_place(torch.stack(list(lb)).float(), self.group)
         if self.step_mode == "split":
             terms.div_(self.world)
         return LossBreakdown(*terms.unbind(0))

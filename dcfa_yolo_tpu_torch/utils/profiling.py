@@ -1,8 +1,9 @@
 """Timing utilities of the port (`dcfa_yolo_tpu/utils/profiling.py`): the
 H100's peaks and the bound they give, a device timer, the bench's
 steady-state timer, the training CLI's `StepTimer` and `trace`, the
-program's spans (`span`, `recorded_spans`) and the device busy time of a
-profiler window (`device_busy`)."""
+program's spans (`span`, `recorded_spans`) and counters (`count`,
+`counters`) and the device busy time of a profiler window
+(`device_busy`)."""
 
 from __future__ import annotations
 
@@ -189,6 +190,29 @@ def span(name: str, request: Optional[int] = None):
     if not _profiler_enabled():
         return _OFF
     return _Span(name, request)
+
+
+_COUNTERS: Dict[str, float] = {}
+
+
+def count(name: str, n: float = 1, *, total: bool = False) -> None:
+    """Add `n` to the counter `name` (with `total`, set it to `n`: a
+    quantity read once, such as a pool's size) while a `torch.profiler`
+    session records in this process, as `span` records; otherwise one read
+    of the profiler's state.  It never waits for the device."""
+    if _profiler_enabled():
+        _COUNTERS[name] = n if total else _COUNTERS.get(name, 0) + n
+
+
+def counters() -> Dict[str, float]:
+    """The counters recorded so far, by name."""
+    return dict(_COUNTERS)
+
+
+def clear_counters(*names: str) -> None:
+    """Drop the counters `names`, or all of them."""
+    for name in names or list(_COUNTERS):
+        _COUNTERS.pop(name, None)
 
 
 def recorded_spans() -> List[SpanRecord]:

@@ -161,12 +161,11 @@ def test_phi_forward_shapes_at_256(phi):
         (1, 32, 32, 65), (1, 16, 16, 65), (1, 8, 8, 65)]
 
 
-def test_phi_s_forward_matches_jax():
-    """phi='s' at 64² float32, the port against JAX at TOL, on lively
-    weights drawn per flax leaf from a seed (the distributions of the
-    port's `init_model`)."""
-    template = _template(JaxModelConfig(num_classes=1, phi="s"))
-    rng = np.random.default_rng(5)
+def _lively(phi, seed):
+    """Weights drawn per flax leaf from `seed`, with the distributions of
+    the port's `init_model`."""
+    template = _template(JaxModelConfig(num_classes=1, phi=phi))
+    rng = np.random.default_rng(seed)
 
     def draw(path, leaf):
         name = getattr(path[-1], "key", "")
@@ -180,4 +179,19 @@ def test_phi_s_forward_matches_jax():
             v = rng.standard_normal(leaf.shape) * 0.05
         return v.astype(np.float32)
 
-    _against_jax(jax.tree_util.tree_map_with_path(draw, template), "s", (64, 64), 1)
+    return jax.tree_util.tree_map_with_path(draw, template)
+
+
+def test_phi_s_forward_matches_jax():
+    """phi='s' at 64² float32, the port against JAX at TOL, on lively
+    weights drawn per flax leaf from a seed (the distributions of the
+    port's `init_model`)."""
+    _against_jax(_lively("s", 5), "s", (64, 64), 1)
+
+
+def test_phi_x_forward_matches_jax():
+    """phi='x', the largest (80 stem channels, depth-3 stacks, 640 deep
+    channels), at 64² float32: the port against JAX at TOL, on lively
+    weights."""
+    out = _against_jax(_lively("x", 6), "x", (64, 64), 2)
+    assert out.cls.shape == (2, 84, 1)
