@@ -6,7 +6,8 @@ then drives the paths of the port at phi='n' 640²: serving through
 `YOLOPredictor` in bf16 (kernels A and B), training through
 `Trainer.train_step` in bf16 (kernel C), the captured train step (one CUDA
 graph a step, kernel C inside, held bit-equal to the eager step at phi n
-and phi s), backbone
+and phi s), the train-mode BatchNorm (kernel D) against its plain version
+and timed at phi x's stem BN and a neck layer, backbone
 rematerialization (`--remat`: kernel C in the forward and in the
 backward's recompute), the training CLI (`python -m
 dcfa_yolo_tpu_torch.train`, in-process) in float32 (kernel C's float32
@@ -93,7 +94,7 @@ def phase_build():
           f"{_build.BUILD_SECONDS:.1f} s")
     for name in _build.SOURCES:
         log = (_build.BUILD_DIR / (name.rsplit(".", 1)[0] + ".log"))
-        fn, stack = "?", ""
+        fn, stack, used = "?", "", {}
         for line in (log.read_text().splitlines() if log.exists() else []):
             m = re.search(r"Compiling entry function .*?\d([a-z][a-z_]*_kernel)"
                           r"(ILi(\d)E|I13__nv_bfloat16E|IfE)?", line)
@@ -104,7 +105,14 @@ def phase_build():
             elif "stack frame" in line:
                 stack = line.strip()
             elif "Used" in line:
-                print(f"[build] {name} {fn}: {line.split(':', 1)[1].strip()}; {stack}")
+                used.setdefault(fn, []).append(f"{line.split(':', 1)[1].strip()}; {stack}")
+        # a template's instantiations (kernel D's dtype, layout and vector
+        # width) on one line each: the most registers among them
+        for fn, lines in used.items():
+            regs = [int(r) for r in re.findall(r"Used (\d+) registers", " ".join(lines))]
+            print(f"[build] {name} {fn}: " + (lines[0] if len(lines) == 1 else
+                  f"{len(lines)} instantiations, {min(regs)}-{max(regs)} registers; "
+                  f"{lines[regs.index(max(regs))]}"))
     # the kernels on the stem core (A, C, the probe's four variants) as the
     # card reports them (the persistent grid's size comes from
     # resident_ctas): at most 128 registers, no stack and at least two CTAs
@@ -585,6 +593,151 @@ def phase_train_stem(dev, dtype=torch.bfloat16):
     return t
 
 
+def graph_ms(fn, iters, reps=1):
+    """Device ms of one call of `fn()`: `reps` calls captured in one CUDA
+    graph, replayed `iters` times between CUDA events, so that no host time
+    (the wrapper's Python, the launches) is counted."""
+    from dcfa_yolo_tpu_torch.utils.profiling import device_ms
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = device_ms(graph.replay, iters) / reps
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase_bn_train(dev):
+    """Kernel D (`ops/cuda_bn_train.py`) at phi x's 80-channel 640² stem BN
+    (bf16 in and out, channels_last) and at a 20² neck layer (a conv's
+    float32 sums in, bf16 out, NCHW), b16, against the plain version
+    (`BatchNorm.train_plain`) from the same state, to the card tests'
+    limits: y ≥ 99.9% bit-equal; `mean` and rstd within 1e-6 of the plain
+    version's (the mean relative to the channel's rms); the running
+    statistics within 1e-6; dx at cosine ≥ 0.99999 and within 1e-4 of its
+    norm; γ's and β's gradients within 1e-5.  Two runs `torch.equal`.
+    Then forward and forward + backward timed on the device alone
+    (`graph_ms`) beside their bound (one read of each input, one write of
+    each output), the plain version and `F.batch_norm` + backward
+    (`library_ms`; the port never calls it)."""
+    import torch.nn.functional as F
+    from dcfa_yolo_tpu_torch.ops import cuda_bn_train as cbt
+    from dcfa_yolo_tpu_torch.ops.norm import BatchNorm, batch_moments
+    from dcfa_yolo_tpu_torch.utils.profiling import H100_FP32_FLOPS, bound
+
+    def rel(a, b):
+        """The card tests' `assert_close(a, b, rtol=r, atol=r·max|b|)` as the
+        least r that passes: the largest |a − b| / (|b| + max|b|)."""
+        a, b = a.double(), b.double()
+        return float(((a - b).abs() / (b.abs() + b.abs().max())).max())
+
+    out = {}
+    for tag, shape, nhwc, x_dtype in (("stem", (16, 80, 640, 640), True, torch.bfloat16),
+                                      ("neck", (16, 640, 20, 20), False, torch.float32)):
+        rng = np.random.default_rng(SEED + 40)
+        c = shape[1]
+        x = torch.from_numpy((rng.standard_normal(shape, np.float32)
+                              * (rng.random((1, c, 1, 1), np.float32) * 2 + 0.5)
+                              + rng.standard_normal((1, c, 1, 1), np.float32) * 0.5)).to(dev)
+        x = x.to(x_dtype)
+        if nhwc:
+            x = x.contiguous(memory_format=torch.channels_last)
+        bn = BatchNorm(c, eps=1e-3, momentum=0.03).to(dev).train()
+        with torch.no_grad():
+            for t_, (sd, m) in ((bn.weight, (0.3, 1.0)), (bn.bias, (0.3, 0.0)),
+                                (bn.running_mean, (0.1, 0.0))):
+                t_.copy_(torch.from_numpy(rng.standard_normal(c, np.float32) * sd + m))
+            bn.running_var.copy_(torch.from_numpy(rng.random(c, np.float32) + 0.5))
+        state = {k: v.clone() for k, v in bn.state_dict().items()}
+        g = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dev, torch.bfloat16)
+        g = g.contiguous(memory_format=torch.channels_last) if nhwc else g
+        kernel = lambda xx: bn(xx, torch.bfloat16)  # noqa: E731
+        plain = lambda xx: bn.train_plain(xx, torch.bfloat16)  # noqa: E731
+
+        def library(xx):
+            return F.batch_norm(xx, bn.running_mean, bn.running_var, bn.weight, bn.bias, True,
+                                bn.momentum, bn.eps).to(torch.bfloat16)
+
+        def fwd_bwd(fn):
+            """y, (dx, dγ, dβ), (running mean, running var).  y is detached:
+            a live autograd graph would keep γ's and β's AccumulateGrad nodes
+            on the stream that made them, which a later capture must not
+            wait on."""
+            xg = x.detach().requires_grad_(True)
+            y = fn(xg)
+            return y.detach(), torch.autograd.grad(y, (xg, bn.weight, bn.bias), g), (
+                bn.running_mean.clone(), bn.running_var.clone())
+
+        runs = []
+        for fn in (kernel, plain, kernel):
+            bn.load_state_dict(state)
+            runs.append(fwd_bwd(fn))
+        (y, gd, run), (y_p, gp, run_p), (y2, gd2, run2) = runs
+        bn.load_state_dict(state)
+        p = cbt.plan(shape, nhwc, x.element_size(), True, cbt._sms(x.device))
+        stats = cbt._moments(x, p, bn.eps, (bn.running_mean, bn.running_var), False,
+                             bn.momentum, None)
+        mean_p, var_p = batch_moments(x.float())
+        torch.cuda.synchronize()
+        rms = (var_p.double() + mean_p.double() ** 2).sqrt()
+        rstd_p = torch.rsqrt(var_p + bn.eps).double()
+        dx, dx_p = gd[0].double().flatten(), gp[0].double().flatten()
+        err = {"y_bit_equal": (y == y_p).float().mean().item(),
+               "mean": float(((stats[0].double() - mean_p.double()).abs() / rms).max()),
+               "rstd": float(((stats[1].double() - rstd_p).abs() / rstd_p).max()),
+               "running_mean": rel(run[0], run_p[0]),
+               "running_var": float(((run[1].double() - run_p[1].double()).abs()
+                                     / run_p[1].double()).max()),
+               "dx_cosine": float(dx @ dx_p / (dx.norm() * dx_p.norm())),
+               "dx_norm": float((dx - dx_p).norm() / dx_p.norm()),
+               "dgamma": rel(gd[1], gp[1]), "dbeta": rel(gd[2], gp[2])}
+        limits = {"mean": 1e-6, "rstd": 1e-6, "running_mean": 1e-6, "running_var": 1e-6,
+                  "dx_norm": 1e-4, "dgamma": 1e-5, "dbeta": 1e-5}
+        bad = [k for k, lim in limits.items() if not err[k] <= lim]
+        bad += [k for k, lim in (("y_bit_equal", 0.999), ("dx_cosine", 0.99999))
+                if not err[k] >= lim]
+        print(f"[bn_train] {tag} against the plain version: " + ", ".join(
+            f"{k} {v:.3g}" if k not in ("y_bit_equal", "dx_cosine") else f"{k} {v:.8f}"
+            for k, v in err.items()))
+        check(not bad, f"[bn_train] {tag}: outside the limits: {bad} ({err})")
+        check(torch.equal(y, y2) and all(torch.equal(a_, b_) for a_, b_ in zip(gd, gd2))
+              and all(torch.equal(a_, b_) for a_, b_ in zip(run, run2)),
+              f"[bn_train] {tag}: two runs differ")
+        e = x.numel()
+        bytes_f = e * (x.element_size() + 2)
+        bytes_fb = bytes_f + e * (2 * x.element_size() + 2)
+        t = {}
+        reps = 1 if e > 1e8 else 20
+        for name, fn, iters in (("ms", kernel, 20), ("plain_ms", plain, 5),
+                                ("library_ms", library, 20)):
+            t[name + "_fwd"] = graph_ms(lambda: fn(x), iters, reps)
+            t[name] = graph_ms(lambda: fwd_bwd(fn), iters, reps)
+        bn.load_state_dict(state)
+        t["bound_ms_fwd"], _ = bound(bytes_f, 7 * e, H100_FP32_FLOPS)
+        t["bound_ms"], t["bound_by"] = bound(bytes_fb, 16 * e, H100_FP32_FLOPS)
+        t["max_abs_err"] = (y.float() - y_p.float()).abs().max().item()
+        print(f"[bn_train] {tag} {tuple(shape)} {str(x_dtype)[6:]} -> bf16 "
+              f"{'NHWC' if nhwc else 'NCHW'}: two runs torch.equal | forward: kernel "
+              f"{t['ms_fwd']:.4f} ms, plain {t['plain_ms_fwd']:.4f}, library(F.batch_norm) "
+              f"{t['library_ms_fwd']:.4f}, bound {t['bound_ms_fwd']:.4f} "
+              f"({100 * t['bound_ms_fwd'] / t['ms_fwd']:.1f}%) | forward + backward: kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, library {t['library_ms']:.4f}, "
+              f"bound {t['bound_ms']:.4f} ({t['bound_by']}, "
+              f"{100 * t['bound_ms'] / t['ms']:.1f}%) | {CARD}")
+        check(t["bound_ms"] <= t["ms"] and t["bound_ms_fwd"] <= t["ms_fwd"],
+              f"[bn_train] {tag}: a time under its bound")
+        out[tag] = t
+    return out
+
+
 def phase_train(dev):
     """The train path: Trainer at phi='n' 640² bf16, b16 SGD-nesterov, the
     reference init (seed 0), 6 steps at a fixed LR on one batch, with the
@@ -599,11 +752,14 @@ def phase_train(dev):
     (cuDNN's bf16 backward) against the float32 reduction of the same bf16
     operands rounded once (2 bf16 steps of the largest entry); and the
     bf16 matrix products of the kernel-graph step that run through cuBLAS,
-    with `allow_bf16_reduced_precision_reduction`.  Returns kernel C's
-    launches by entry."""
+    with `allow_bf16_reduced_precision_reduction`.  Kernel D's launches
+    over the 6 steps are six for each train-mode BN call (three forward,
+    three backward; the calls counted on the first, eager step).  Returns
+    kernels C's and D's launches by entry."""
     from dcfa_yolo_tpu_torch.config import ModelConfig, TrainConfig
     from dcfa_yolo_tpu_torch.models.yolo import init_model
-    from dcfa_yolo_tpu_torch.ops import cuda_nms, cuda_stem, cuda_stem_train
+    from dcfa_yolo_tpu_torch.ops import cuda_bn_train, cuda_nms, cuda_stem, cuda_stem_train
+    from dcfa_yolo_tpu_torch.ops.norm import BatchNorm
     from dcfa_yolo_tpu_torch.profile_train import step_stages, synthetic_batch
     from dcfa_yolo_tpu_torch.train.trainer import Trainer
 
@@ -621,16 +777,24 @@ def phase_train(dev):
     stem_bn = tr.model.backbone_rgb.stem.bn
     bn0 = (stem_bn.running_mean.clone(), stem_bn.running_var.clone())
 
+    bn_calls = []
+    hooks = [m.register_forward_pre_hook(lambda *_: bn_calls.append(1))
+             for m in tr.model.modules() if isinstance(m, BatchNorm)]
     cuda_stem.LAUNCHES = cuda_nms.LAUNCHES = cuda_stem_train.LAUNCHES = 0
+    cuda_bn_train.LAUNCHES = 0
     losses, step_ms = [], []
-    for _ in range(steps):
+    for i in range(steps):
         t0 = time.perf_counter()
         lb = tr.train_step(batch, lr)
         losses.append(float(lb.total))  # synchronises
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            n_bn = len(bn_calls)
+            for h in hooks:
+                h.remove()
     torch.cuda.synchronize()
     launches = {"stem_eval": cuda_stem.LAUNCHES, "nms_suppress": cuda_nms.LAUNCHES,
-                "stem_train": cuda_stem_train.LAUNCHES}
+                "stem_train": cuda_stem_train.LAUNCHES, "bn_train": cuda_bn_train.LAUNCHES}
     med = float(np.median(step_ms))
     print(f"[train] b{b} 640² bf16 SGD lr {lr:g}, {steps} steps on one batch: launches "
           f"{launches}, loss {losses[0]:.4f} -> {losses[-1]:.4f}")
@@ -638,6 +802,10 @@ def phase_train(dev):
           f"steps {', '.join(f'{t:.1f}' for t in step_ms)}), images/s {b * 1e3 / med:.1f}")
     check(launches["stem_train"] == 2 * steps,
           f"expected {2 * steps} train-stem launches, got {launches}")
+    print(f"[train] kernel D: {n_bn} train-mode BN calls a step, {launches['bn_train']} "
+          f"launches over the {steps} steps (graph stats {tr.graph_stats()})")
+    check(n_bn > 0 and launches["bn_train"] == 6 * n_bn * steps,
+          f"expected 6 × {n_bn} × {steps} kernel-D launches, got {launches['bn_train']}")
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     check(not torch.equal(stem_bn.running_mean, bn0[0])
@@ -2863,8 +3031,10 @@ def main() -> int:
         launches, nms_t = phase_serve(dev)
         train_stem_t = phase_train_stem(dev)
         train_stem_f32_t = phase_train_stem(dev, torch.float32)
+        bn_t = phase_bn_train(dev)
         train_n = phase_train(dev)
         launches["stem_train"] = train_n["stem_train"]
+        launches["bn_train"] = train_n["bn_train"]
         for name, n in phase_train_graph(dev).items():
             launches[name] += n
         remat_n = phase_remat(dev)
@@ -2921,6 +3091,16 @@ def main() -> int:
             launches=n, max_abs_err=t["max_abs_err"], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"]))
+    # kernel D, forward + backward, at phi x's stem BN, its times at the neck
+    # layer beside them; launches in [train]'s main-path steps; no TPU
+    # kernel: XLA fuses the BN
+    t, neck = bn_t["stem"], bn_t["neck"]
+    kernels.append(dict(
+        name="bn_train", route="cuda", source="dcfa_yolo_tpu_torch/csrc/bn_train.cu",
+        replaces=None, launches=launches["bn_train"], max_abs_err=t["max_abs_err"],
+        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        library_ms=t["library_ms"], neck={k: neck[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}))
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -35,6 +35,7 @@ SOURCES = {
     "nms_suppress.cu": ["-fmad=false"],
     "stem_train.cu": [],
     "stem_probe.cu": [],
+    "bn_train.cu": [],
 }
 HEADERS = ("stem_core.cuh",)  # included by stem_eval.cu, stem_train.cu, stem_probe.cu
 
@@ -112,6 +113,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.stem_probe_bf16.restype = i
     lib.stem_probe_info.argtypes = [i, p]
     lib.stem_probe_info.restype = i
+    ll, d = ctypes.c_longlong, ctypes.c_double
+    lib.bn_train_sums.argtypes = [i, i, i, i, i, p, p, p, p, i, i, ll, i, i, i, p]
+    lib.bn_train_sums.restype = i
+    lib.bn_train_finalize.argtypes = [p, i, i, d, d, p, p, p, p, p, f, f, f, p]
+    lib.bn_train_finalize.restype = i
+    lib.bn_train_grad_finalize.argtypes = [p, i, i, p, p, p, p]
+    lib.bn_train_grad_finalize.restype = i
+    lib.bn_train_elementwise.argtypes = [i, i, i, i, i, p, p, p, p, p, p, d, i, i, ll, i, p]
+    lib.bn_train_elementwise.restype = i
     lib.dcfa_error_string.argtypes = [i]
     lib.dcfa_error_string.restype = ctypes.c_char_p
 

@@ -13,6 +13,9 @@ formula as written, through the batch mean and variance.  The running
 statistics move as in torch: `r ← (1−m)·r + m·stat`, the variance with the
 Bessel factor n/(n−1).  `F.batch_norm` is not used: its variance and its
 backward are other formulas, and in bfloat16 it rounds at other places.
+`BatchNorm.train_plain` is that formula in plain PyTorch, the train branch
+on the CPU; on the card the branch is kernel D
+(`ops/cuda_bn_train.py::bn_train`), which computes the same formula.
 
 With a process group (`BatchNorm.group`, the JAX module's `axis_name`,
 `ops/norm.py:61-67`) the train-mode `mean` and `mean²` are averaged over
@@ -38,6 +41,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from dcfa_yolo_tpu_torch.ops import cuda_bn_train
 from dcfa_yolo_tpu_torch.parallel.mesh import all_reduce_mean, world_size
 
 
@@ -115,6 +119,19 @@ class BatchNorm(nn.Module):
             inv, shift = self.folded()
             return (x * inv.to(x.dtype).view(shape)
                     + shift.to(x.dtype).view(shape))
+        if x.is_cuda:
+            return cuda_bn_train.bn_train(
+                x, self.weight, self.bias, self.running_mean, self.running_var,
+                self.momentum, self.eps, dtype or x.dtype, self.group,
+                not getattr(_RECOMPUTE, "on", False))
+        return self.train_plain(x, dtype)
+
+    def train_plain(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None
+                    ) -> torch.Tensor:
+        """The train branch in plain PyTorch on any device (the module
+        docstring's formula); the CPU's route, and what kernel D is held
+        to on the card."""
+        shape = (1, -1, 1, 1)
         xf = x.float()
         mean, var = batch_moments(xf, self.group)
         update_running(self, mean.detach(), var.detach(),

@@ -52,7 +52,7 @@ import torch
 from dcfa_yolo_tpu_torch.config import TrainConfig
 from dcfa_yolo_tpu_torch.device import resolve_device
 from dcfa_yolo_tpu_torch.models.yolo import _DTYPES
-from dcfa_yolo_tpu_torch.ops import cuda_stem_train
+from dcfa_yolo_tpu_torch.ops import cuda_bn_train, cuda_stem_train
 from dcfa_yolo_tpu_torch.parallel.mesh import broadcast_state, reduce_in_place, world_size
 from dcfa_yolo_tpu_torch.train.ema import ModelEMA
 from dcfa_yolo_tpu_torch.train.flat_opt import (FlatAdam, FlatEMA, FlatLayout,
@@ -64,6 +64,9 @@ from dcfa_yolo_tpu_torch.utils.profiling import count, span
 STEP_MODES = ("auto", "fused", "split")
 CAPTURE_MODES = ("auto", "off")
 WARMUP_STEPS = 2  # eager steps of a key before its step is captured
+# the kernels' counters a captured step holds, and adds at each replay
+HELD_COUNTERS = ((cuda_stem_train, "LAUNCHES"), (cuda_stem_train, "LAUNCHES_F32"),
+                 (cuda_bn_train, "LAUNCHES"))
 
 
 class Batch(NamedTuple):
@@ -105,15 +108,16 @@ def graph_route(capture: str, device: torch.device, group, flat_tail: bool) -> b
 class _StepGraph(NamedTuple):
     """One captured step: its key, the graph, the static inputs it reads
     (the capturing call's batch), its static outputs (the stacked loss
-    terms and the flat gradient), kernel C's launches it holds (all,
-    float32) and the bytes its private memory pool holds."""
+    terms and the flat gradient), what it adds to each of `HELD_COUNTERS`
+    (kernel C's launches, all and float32, and kernel D's launches) and
+    the bytes its private memory pool holds."""
 
     key: tuple
     graph: "torch.cuda.CUDAGraph"
     inputs: Batch
     terms: torch.Tensor
     grad: torch.Tensor
-    launches: Tuple[int, int]
+    launches: Tuple[int, ...]
     pool_bytes: int
 
 
@@ -329,9 +333,9 @@ class Trainer:
         memory pool of its own: the stages, with the optimizer's and the
         EMA's kernels (`apply`) as the update; their host halves (`advance`)
         run before each replay.  A capture records and runs nothing, so no
-        state moves; kernel C's counters are put back (a replay adds what
-        the graph holds).  A capture that fails raises: nothing falls back
-        to the eager step.
+        state moves; the kernels' counters (`HELD_COUNTERS`) are put back
+        (a replay adds what the graph holds).  A capture that fails raises:
+        nothing falls back to the eager step.
 
         cuBLAS keeps a workspace (and cuBLASLt another) for each stream it
         runs on, two 32 MiB blocks with torch 2.11 on the H100: the capture
@@ -344,16 +348,16 @@ class Trainer:
             self.optimizer.apply(g, freeze_backbone)
             self.ema.apply()
 
-        before = (cuda_stem_train.LAUNCHES, cuda_stem_train.LAUNCHES_F32)
+        before = tuple(getattr(m, name) for m, name in HELD_COUNTERS)
         graph = torch.cuda.CUDAGraph()
         torch._C._cuda_clearCublasWorkspaces()
         try:
             with torch.cuda.graph(graph):
                 terms, g = self._stages(batch, update)
         finally:
-            held = (cuda_stem_train.LAUNCHES - before[0],
-                    cuda_stem_train.LAUNCHES_F32 - before[1])
-            cuda_stem_train.LAUNCHES, cuda_stem_train.LAUNCHES_F32 = before
+            held = tuple(getattr(m, name) - b for (m, name), b in zip(HELD_COUNTERS, before))
+            for (m, name), b in zip(HELD_COUNTERS, before):
+                setattr(m, name, b)
             torch._C._cuda_clearCublasWorkspaces()
         self._counts["captures"] += 1
         return _StepGraph(key, graph, batch, terms, g, held, pool_bytes(graph))
@@ -372,8 +376,8 @@ class Trainer:
         if g.launches[1]:
             cuda_stem_train.order_f32(torch.cuda.current_stream(self.device))
         g.graph.replay()
-        cuda_stem_train.LAUNCHES += g.launches[0]
-        cuda_stem_train.LAUNCHES_F32 += g.launches[1]
+        for (m, name), n in zip(HELD_COUNTERS, g.launches):
+            setattr(m, name, getattr(m, name) + n)
         self._counts["replays"] += 1
         return (LossBreakdown(*g.terms.clone().unbind(0)),
                 g.grad.clone() if want_grad else None)
