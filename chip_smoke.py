@@ -362,7 +362,7 @@ def phase_serve(dev):
     exactly that run."""
     from dcfa_yolo_tpu_torch.infer.pipeline import predict
     from dcfa_yolo_tpu_torch.infer.predictor import YOLOPredictor
-    from dcfa_yolo_tpu_torch.ops import cuda_nms, cuda_stem
+    from dcfa_yolo_tpu_torch.ops import _build
     from dcfa_yolo_tpu_torch.ops.nms import _select_candidates, batched_nms
 
     kw = dict(input_shape=(640, 640), phi="n", confidence=0.001, nms_iou=0.5,
@@ -375,12 +375,12 @@ def phase_serve(dev):
     pred.detect(singles[0][0][0], singles[0][1][0])
     pred.detect_batch(rgb8, nir8)
 
-    cuda_stem.LAUNCHES = 0
-    cuda_nms.LAUNCHES = 0
+    before = _build.launches()
     answers = [pred.detect(r[0], n[0]) for r, n in singles]
     batch = pred.detect_batch(rgb8, nir8)
     torch.cuda.synchronize()
-    launches = {"stem_eval": cuda_stem.LAUNCHES, "nms_suppress": cuda_nms.LAUNCHES}
+    n = _build.launches(before)
+    launches = {"stem_eval": n["stem_eval"], "nms_suppress": n["nms_suppress"]}
     print(f"[serve] 3 single-pair requests + 1 b8 batch: launches {launches}, "
           f"detections {[len(a[0]) for a in answers]} + "
           f"{[len(d[0]) for d in batch]}, cap_stats {pred.cap_stats}")
@@ -758,7 +758,7 @@ def phase_train(dev):
     kernels C's and D's launches by entry."""
     from dcfa_yolo_tpu_torch.config import ModelConfig, TrainConfig
     from dcfa_yolo_tpu_torch.models.yolo import init_model
-    from dcfa_yolo_tpu_torch.ops import cuda_bn_train, cuda_nms, cuda_stem, cuda_stem_train
+    from dcfa_yolo_tpu_torch.ops import _build
     from dcfa_yolo_tpu_torch.ops.norm import BatchNorm
     from dcfa_yolo_tpu_torch.profile_train import step_stages, synthetic_batch
     from dcfa_yolo_tpu_torch.train.trainer import Trainer
@@ -780,8 +780,7 @@ def phase_train(dev):
     bn_calls = []
     hooks = [m.register_forward_pre_hook(lambda *_: bn_calls.append(1))
              for m in tr.model.modules() if isinstance(m, BatchNorm)]
-    cuda_stem.LAUNCHES = cuda_nms.LAUNCHES = cuda_stem_train.LAUNCHES = 0
-    cuda_bn_train.LAUNCHES = 0
+    before = _build.launches()
     losses, step_ms = [], []
     for i in range(steps):
         t0 = time.perf_counter()
@@ -793,8 +792,8 @@ def phase_train(dev):
             for h in hooks:
                 h.remove()
     torch.cuda.synchronize()
-    launches = {"stem_eval": cuda_stem.LAUNCHES, "nms_suppress": cuda_nms.LAUNCHES,
-                "stem_train": cuda_stem_train.LAUNCHES, "bn_train": cuda_bn_train.LAUNCHES}
+    n = _build.launches(before)
+    launches = {k: n[k] for k in ("stem_eval", "nms_suppress", "stem_train", "bn_train")}
     med = float(np.median(step_ms))
     print(f"[train] b{b} 640² bf16 SGD lr {lr:g}, {steps} steps on one batch: launches "
           f"{launches}, loss {losses[0]:.4f} -> {losses[-1]:.4f}")
@@ -825,11 +824,12 @@ def phase_train(dev):
     print(f"[train] peak device memory so far {peak:.2f} GiB")
 
     del tr, batch
-    cuda_stem_train.LAUNCHES = cuda_stem_train.LAUNCHES_F32 = 0
+    before = _build.launches()
     runs = one_step_runs(dev, cfg, tc, host_batch)
     torch.cuda.synchronize()
-    launches["stem_train"] += cuda_stem_train.LAUNCHES - cuda_stem_train.LAUNCHES_F32
-    launches["stem_train_f32"] = cuda_stem_train.LAUNCHES_F32
+    n = _build.launches(before)
+    launches["stem_train"] += n["stem_train"] - n["stem_train_f32"]
+    launches["stem_train_f32"] = n["stem_train_f32"]
     check(launches["stem_train_f32"] == 2 and launches["stem_train"] == 2 * steps + 2,
           f"kernel C launches in the one-step comparisons: {launches}")
     report_one_step_runs(*runs)
@@ -918,7 +918,7 @@ def phase_train_graph(dev, phis=(("n", 2), ("s", 0), ("x", 0))):
 
     from dcfa_yolo_tpu_torch.config import ModelConfig, TrainConfig
     from dcfa_yolo_tpu_torch.models.yolo import init_model
-    from dcfa_yolo_tpu_torch.ops import cuda_stem_train
+    from dcfa_yolo_tpu_torch.ops import _build
     from dcfa_yolo_tpu_torch.profile_train import synthetic_batch
     from dcfa_yolo_tpu_torch.train.trainer import WARMUP_STEPS, Trainer
 
@@ -938,10 +938,10 @@ def phase_train_graph(dev, phis=(("n", 2), ("s", 0), ("x", 0))):
         """The 6 steps: (loss terms a step, the state after, on the host;
         graph_stats)."""
         t = trainer(cfg, capture)
-        before = cuda_stem_train.LAUNCHES
+        before = _build.launches()
         terms = [torch.stack(list(t.train_step(t.put_batch(*hb), lr))).cpu() for hb in host]
         torch.cuda.synchronize()
-        launches["stem_train"] += cuda_stem_train.LAUNCHES - before
+        launches["stem_train"] += _build.launches(before)["stem_train"]
         st = t.state
         state = {f"{what}.{k}": v.detach().cpu() for what, d in (
             ("params", st.params), ("stats", st.batch_stats), ("ema", st.ema),
@@ -952,18 +952,18 @@ def phase_train_graph(dev, phis=(("n", 2), ("s", 0), ("x", 0))):
         """(ms a step, peak allocated bytes, kernel C launches a step)."""
         t = trainer(cfg, capture)
         b = t.put_batch(*host[0])
-        start = cuda_stem_train.LAUNCHES
+        start = _build.launches()
         for _ in range(WARMUP_STEPS + 1):
             t.train_step(b, lr)
         torch.cuda.synchronize()
-        before = cuda_stem_train.LAUNCHES
+        before = _build.launches()
         t0 = time.perf_counter()
         for _ in range(n):
             t.train_step(b, lr)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / n * 1e3
-        launches["stem_train"] += cuda_stem_train.LAUNCHES - start
-        return ms, torch.cuda.max_memory_allocated(), (cuda_stem_train.LAUNCHES - before) / n
+        launches["stem_train"] += _build.launches(start)["stem_train"]
+        return ms, torch.cuda.max_memory_allocated(), _build.launches(before)["stem_train"] / n
 
     for phi, c_launches in phis:
         cfg = ModelConfig(num_classes=1, phi=phi, input_shape=(640, 640),
@@ -1018,7 +1018,7 @@ def phase_remat(dev):
 
     from dcfa_yolo_tpu_torch.config import ModelConfig, TrainConfig
     from dcfa_yolo_tpu_torch.models.yolo import init_model
-    from dcfa_yolo_tpu_torch.ops import cuda_stem_train
+    from dcfa_yolo_tpu_torch.ops import _build
     from dcfa_yolo_tpu_torch.profile_train import synthetic_batch
     from dcfa_yolo_tpu_torch.train.trainer import WARMUP_STEPS, Trainer
 
@@ -1037,12 +1037,13 @@ def phase_remat(dev):
 
     def counted(fn):
         torch.cuda.synchronize()
-        cuda_stem_train.LAUNCHES = cuda_stem_train.LAUNCHES_F32 = 0
+        before = _build.launches()
         out = fn()
         torch.cuda.synchronize()
-        n = cuda_stem_train.LAUNCHES
-        launches["stem_train"] += n - cuda_stem_train.LAUNCHES_F32
-        launches["stem_train_f32"] += cuda_stem_train.LAUNCHES_F32
+        got = _build.launches(before)
+        n = got["stem_train"]
+        launches["stem_train"] += n - got["stem_train_f32"]
+        launches["stem_train_f32"] += got["stem_train_f32"]
         return out, n
 
     def one_step(dtype, remat):
@@ -1295,20 +1296,21 @@ def phase_train_cli(dev, data):
 
     from dcfa_yolo_tpu_torch.config import ModelConfig
     from dcfa_yolo_tpu_torch.models.yolo import DCFAYolo
-    from dcfa_yolo_tpu_torch.ops import cuda_nms, cuda_stem, cuda_stem_train
+    from dcfa_yolo_tpu_torch.ops import _build
     from dcfa_yolo_tpu_torch.train.__main__ import run
     from dcfa_yolo_tpu_torch.train.trainer import Trainer
     from dcfa_yolo_tpu_torch.utils.checkpoint import load_checkpoint, load_variables
 
+    since = _build.launches()
+
     def reset():
-        cuda_stem.LAUNCHES = cuda_nms.LAUNCHES = 0
-        cuda_stem_train.LAUNCHES = cuda_stem_train.LAUNCHES_F32 = 0
+        since.clear()
+        since.update(_build.launches())
 
     def counts():
         torch.cuda.synchronize()
-        return {"stem_train_f32": cuda_stem_train.LAUNCHES_F32,
-                "stem_train": cuda_stem_train.LAUNCHES,
-                "stem_eval": cuda_stem.LAUNCHES, "nms_suppress": cuda_nms.LAUNCHES}
+        n = _build.launches(since)
+        return {k: n[k] for k in ("stem_train_f32", "stem_train", "stem_eval", "nms_suppress")}
 
     lines = read_lines
 
@@ -1531,18 +1533,18 @@ def phase_probe(dev):
     A's conv step and pool split between warps, bit-identical to full.
     Prints the split: (conv + pool) / full, pool / full and pipe / full."""
     import torch.nn.functional as F
-    from dcfa_yolo_tpu_torch.ops import cuda_stem
+    from dcfa_yolo_tpu_torch.ops import _build, cuda_stem
     from dcfa_yolo_tpu_torch.ops import cuda_stem_probe as csp
     from dcfa_yolo_tpu_torch.tools import stem_split_probe as probe
     from dcfa_yolo_tpu_torch.utils.profiling import device_ms
 
     b, size = 16, 640
-    cuda_stem.LAUNCHES = 0
-    for v in csp.LAUNCHES:
-        csp.LAUNCHES[v] = 0
+    before = _build.launches()
     res = probe.run(b, size, dev, iters=20)
     torch.cuda.synchronize()
-    launches = dict(csp.LAUNCHES, full=cuda_stem.LAUNCHES)
+    n = _build.launches(before)
+    launches = {v: n[f"stem_probe_{v}"] for v in _build.PROBE_CODES}
+    launches["full"] = n["stem_eval"]
     check(all(n > 0 for n in launches.values()),
           f"a probe variant was not launched: {launches}")
     for v in ("dblbuf", "pipe"):
@@ -1615,7 +1617,7 @@ def phase_deploy(dev):
     classes equal; NMS kernel == plain on the same predictions)."""
     from dcfa_yolo_tpu_torch.infer.pipeline import predict
     from dcfa_yolo_tpu_torch.infer.predictor import YOLOPredictor
-    from dcfa_yolo_tpu_torch.ops import cuda_nms, cuda_stem
+    from dcfa_yolo_tpu_torch.ops import _build
     from dcfa_yolo_tpu_torch.ops.nms import batched_nms
 
     kw = dict(input_shape=(640, 640), phi="n", confidence=0.001, nms_iou=0.5,
@@ -1624,10 +1626,11 @@ def phase_deploy(dev):
     base = YOLOPredictor(["object"], **kw)
     rgb8, nir8 = serve_inputs(8, SEED + 50)
     dep.detect_batch(rgb8, nir8)  # captures the b8 graph; the count below is one replay
-    cuda_stem.LAUNCHES = cuda_nms.LAUNCHES = 0
+    before = _build.launches()
     dets = dep.detect_batch(rgb8, nir8)
     torch.cuda.synchronize()
-    launches = {"stem_eval": cuda_stem.LAUNCHES, "nms_suppress": cuda_nms.LAUNCHES}
+    n = _build.launches(before)
+    launches = {"stem_eval": n["stem_eval"], "nms_suppress": n["nms_suppress"]}
     print(f"[deploy] b8 batch: launches {launches}, detections "
           f"{[len(d[0]) for d in dets]}")
     check(launches == {"stem_eval": 2, "nms_suppress": 1},
@@ -1698,7 +1701,7 @@ def phase_graph(dev):
     from dcfa_yolo_tpu_torch.infer.pipeline import (detect_batch, detect_batch_graph,
                                                     graph_count, release_graphs)
     from dcfa_yolo_tpu_torch.infer.predictor import YOLOPredictor
-    from dcfa_yolo_tpu_torch.ops import cuda_nms, cuda_stem
+    from dcfa_yolo_tpu_torch.ops import _build
 
     kw = dict(input_shape=(640, 640), phi="n", confidence=0.001, nms_iou=0.5,
               compute_dtype="bfloat16", seed=SEED)
@@ -1722,11 +1725,12 @@ def phase_graph(dev):
                     first = detect_batch_graph(model, *inputs[0], hw, **nkw)
                     keys += 1
                     check(graph_count(model) == n0 + 1, f"{what}: no capture")
-                    cuda_stem.LAUNCHES = cuda_nms.LAUNCHES = 0
+                    before = _build.launches()
                     again = detect_batch_graph(model, *inputs[0], hw, **nkw)
                     second = detect_batch_graph(model, *inputs[1], hw, **nkw)
                     torch.cuda.synchronize()
-                    launches = (cuda_stem.LAUNCHES, cuda_nms.LAUNCHES)
+                    n = _build.launches(before)
+                    launches = (n["stem_eval"], n["nms_suppress"])
                     check(graph_count(model) == n0 + 1,
                           f"{what}: the key captured more than once")
                     check(launches == (4, 2), f"{what}: two replays counted "
@@ -1863,7 +1867,7 @@ def phase_trained(dev, pairs):
     stem and the float32 path."""
     from dcfa_yolo_tpu_torch.infer.pipeline import detect_batch
     from dcfa_yolo_tpu_torch.infer.predictor import YOLOPredictor
-    from dcfa_yolo_tpu_torch.ops import cuda_nms, cuda_stem
+    from dcfa_yolo_tpu_torch.ops import _build
 
     nkw = dict(conf_thres=0.5, iou_thres=0.5, max_det=100, pre_nms_topk=2048)
 
@@ -1883,10 +1887,11 @@ def phase_trained(dev, pairs):
                              confidence=0.5, nms_iou=0.5, max_det=100,
                              pre_nms_topk=2048, compute_dtype=dtype,
                              variables=trained_variables())
-        cuda_stem.LAUNCHES = cuda_nms.LAUNCHES = 0
+        before = _build.launches()
         served = [pred.detect(r, n) for r, n in pairs]
         torch.cuda.synchronize()
-        launches = (cuda_stem.LAUNCHES, cuda_nms.LAUNCHES)
+        n = _build.launches(before)
+        launches = (n["stem_eval"], n["nms_suppress"])
         # one key, one capture, whose eager warm-up launches once more
         calls = len(pairs) + 1
         want = (2 * calls if dtype == "bfloat16" else 0, calls)
@@ -1934,7 +1939,7 @@ def phase_cli(dev, data_dir):
     from dcfa_yolo_tpu_torch import get_map, predict
     from dcfa_yolo_tpu_torch.data import voc
     from dcfa_yolo_tpu_torch.models.convert import from_jax_variables
-    from dcfa_yolo_tpu_torch.ops import cuda_nms, cuda_stem
+    from dcfa_yolo_tpu_torch.ops import _build
     from dcfa_yolo_tpu_torch.utils.checkpoint import save_checkpoint
 
     sd = from_jax_variables(trained_variables())
@@ -1957,11 +1962,12 @@ def phase_cli(dev, data_dir):
     pair = ["--rgb", os.path.join(img, "rgb", first), "--nir", os.path.join(img, "nir", first)]
 
     def counted(fn):
-        cuda_stem.LAUNCHES = cuda_nms.LAUNCHES = 0
+        before = _build.launches()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        n = (cuda_stem.LAUNCHES, cuda_nms.LAUNCHES)
+        got = _build.launches(before)
+        n = (got["stem_eval"], got["nms_suppress"])
         check(n[0] > 0 and n[1] > 0, f"cli: no stem or NMS launch: {n}")
         return out, n, time.perf_counter() - t0
 
@@ -2034,7 +2040,7 @@ def phase_interop(dev, pairs, trained):
     from dcfa_yolo_tpu_torch.models.convert import from_jax_variables
     from dcfa_yolo_tpu_torch.models.torch_export import save_torch_npz
     from dcfa_yolo_tpu_torch.models.yolo import DCFAYolo
-    from dcfa_yolo_tpu_torch.ops import cuda_nms, cuda_stem
+    from dcfa_yolo_tpu_torch.ops import _build
     from dcfa_yolo_tpu_torch.ops.nms import batched_nms
     from dcfa_yolo_tpu_torch.tools import export
     from dcfa_yolo_tpu_torch.tools.make_synth_dataset import make_dataset
@@ -2074,10 +2080,11 @@ def phase_interop(dev, pairs, trained):
         rgb8, nir8 = serve_inputs(8, SEED + 111)
         pred.detect(r1[0], n1[0])
         pred.detect_batch(rgb8, nir8)  # both keys captured: the count is replays only
-        cuda_stem.LAUNCHES = cuda_nms.LAUNCHES = 0
+        before = _build.launches()
         dets = [pred.detect(r1[0], n1[0])] + pred.detect_batch(rgb8, nir8)
         torch.cuda.synchronize()
-        launches = {"stem_eval": cuda_stem.LAUNCHES, "nms_suppress": cuda_nms.LAUNCHES}
+        n = _build.launches(before)
+        launches = {"stem_eval": n["stem_eval"], "nms_suppress": n["nms_suppress"]}
         check(launches == {"stem_eval": 4, "nms_suppress": 2},
               f"reference .pth served at b1 and b8: expected 2 stem and 1 NMS launches "
               f"a replay, got {launches} over two replays")
@@ -2191,14 +2198,15 @@ def graph_holds(model, inputs, nkw, what):
     replays and read just after.  Returns ((stem, NMS) launches over the
     replays, the eager results)."""
     from dcfa_yolo_tpu_torch.infer.pipeline import detect_batch, detect_batch_graph
-    from dcfa_yolo_tpu_torch.ops import cuda_nms, cuda_stem
+    from dcfa_yolo_tpu_torch.ops import _build
 
     eager = [detect_batch(model, *x, **nkw) for x in inputs]
     detect_batch_graph(model, *inputs[0], **nkw)
-    cuda_stem.LAUNCHES = cuda_nms.LAUNCHES = 0
+    before = _build.launches()
     replays = [detect_batch_graph(model, *x, **nkw) for x in inputs]
     torch.cuda.synchronize()
-    launches = (cuda_stem.LAUNCHES, cuda_nms.LAUNCHES)
+    n = _build.launches(before)
+    launches = (n["stem_eval"], n["nms_suppress"])
     for i, (got, want) in enumerate(zip(replays, eager)):
         bad = [f for f in NMS_FIELDS if not torch.equal(getattr(got, f), getattr(want, f))]
         check(not bad, f"{what}: replay {i} differs from the eager call in {bad}")
@@ -2676,7 +2684,7 @@ def phase_dp(dev, model):
     from dcfa_yolo_tpu_torch.config import ModelConfig, TrainConfig
     from dcfa_yolo_tpu_torch.infer.pipeline import detect_batch_graph, predict, release_graphs
     from dcfa_yolo_tpu_torch.models.yolo import DCFAYolo, init_model
-    from dcfa_yolo_tpu_torch.ops import cuda_nms, cuda_stem, cuda_stem_train
+    from dcfa_yolo_tpu_torch.ops import _build, cuda_stem, cuda_stem_train
     from dcfa_yolo_tpu_torch.ops.nms import _select_candidates
     from dcfa_yolo_tpu_torch.ops.resize import letterbox_batch_cf
     from dcfa_yolo_tpu_torch.parallel import dryrun, serve
@@ -2947,7 +2955,7 @@ def phase_dp(dev, model):
     # cuDNN's default algorithms need not repeat bit for bit, so this check
     # runs with deterministic ones
     store = tempfile.mkdtemp(prefix="dcfa_nccl_")
-    cuda_stem_train.LAUNCHES = cuda_stem_train.LAUNCHES_F32 = 0
+    before = _build.launches()
     group = init_process_group("nccl", "file://" + os.path.join(store, "store"), 0, 1, dev)
     torch.backends.cudnn.deterministic = True
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -2970,7 +2978,7 @@ def phase_dp(dev, model):
         torch.backends.cudnn.deterministic = False
         dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
-    launches["stem_train_f32"] += cuda_stem_train.LAUNCHES_F32
+    launches["stem_train_f32"] += _build.launches(before)["stem_train_f32"]
     differ = lambda a, b: [k for k in runs[a] if not torch.equal(runs[a][k], runs[b][k])]
     print(f"[dp] NCCL world 1, fused b8 float32, 2 steps: parameters, BN statistics and "
           f"EMA torch.equal to the trainer without a group: {not differ('nccl', 'none')} "
@@ -2991,12 +2999,13 @@ def phase_bench():
     NMS kernels' launch counts read around it; its JSON on a line of its
     own."""
     from dcfa_yolo_tpu_torch import bench
-    from dcfa_yolo_tpu_torch.ops import cuda_nms, cuda_stem
+    from dcfa_yolo_tpu_torch.ops import _build
 
     os.environ.update(BENCH_BATCH="32", BENCH_ITERS="5")
-    cuda_stem.LAUNCHES = cuda_nms.LAUNCHES = 0
+    before = _build.launches()
     res = bench.run()
-    launches = {"stem_eval": cuda_stem.LAUNCHES, "nms_suppress": cuda_nms.LAUNCHES}
+    n = _build.launches(before)
+    launches = {"stem_eval": n["stem_eval"], "nms_suppress": n["nms_suppress"]}
     print(f"[bench] launches {launches}")
     print(json.dumps(res))
     check(np.isfinite(res["value"]) and res["value"] > 0 and res["mfu"] <= 1.0,

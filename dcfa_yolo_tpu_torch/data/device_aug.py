@@ -46,8 +46,8 @@ import torch
 from PIL import Image
 
 from dcfa_yolo_tpu_torch.data.augment import load_rgb_u8
+from dcfa_yolo_tpu_torch.data.batch import Batch
 from dcfa_yolo_tpu_torch.device import resolve_device
-from dcfa_yolo_tpu_torch.train.trainer import Batch
 from dcfa_yolo_tpu_torch.utils.profiling import span
 
 
@@ -570,7 +570,7 @@ def make_device_augment(out_hw: Tuple[int, int], max_boxes: int = 64,
 
 class DeviceAugLoader:
     """Drop-in alternative to `data/loader.py::BatchLoader` that yields
-    DEVICE batches (`train/trainer.py::Batch`, images in ``out_dtype``).
+    DEVICE batches (`data/batch.py::Batch`, images in ``out_dtype``).
 
     Stages the dataset into device memory once; then each batch is: the
     host draws the geometry scalars (ParamSampler), sends a few KB to the

@@ -16,7 +16,7 @@ included, in one `torch.cuda.CUDAGraph` per static key and then replays it;
 from __future__ import annotations
 
 import weakref
-from typing import Callable, Dict, List, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,7 +25,7 @@ from dcfa_yolo_tpu_torch.config import ModelConfig
 from dcfa_yolo_tpu_torch.device import kernels_supported, require_kernels
 from dcfa_yolo_tpu_torch.infer.decode import correct_boxes_yxyx, decode_box
 from dcfa_yolo_tpu_torch.models.yolo import DCFAYolo
-from dcfa_yolo_tpu_torch.ops import cuda_nms, cuda_stem
+from dcfa_yolo_tpu_torch.ops import _build
 from dcfa_yolo_tpu_torch.ops.cuda_stem import STEM_CO, fold_stem_params, stem_eval
 from dcfa_yolo_tpu_torch.ops.nms import NMSResult, batched_nms, resolve_nms
 from dcfa_yolo_tpu_torch.ops.resize import (letterbox_batch, letterbox_batch_cf,
@@ -210,20 +210,16 @@ def heatmap_batch(model: DCFAYolo, rgb_raw, nir_raw) -> Tuple[torch.Tensor, ...]
 # ---------------------------------------------------------------------------
 # CUDA graphs: the counterpart of the JAX package's jit.
 
-# the launch counters of the kernels a graph can hold: a wrapper counts a
-# launch when it is called, which under capture launches nothing; a replay
-# launches what the capture recorded and calls no wrapper
-_COUNTED = (cuda_stem, cuda_nms)
-
 
 class _Graph(NamedTuple):
     """One captured call: its graph, the static input buffers it reads,
-    the static outputs it writes, and the kernel launches it holds."""
+    the static outputs it writes, and the kernel launches it holds by name
+    (`ops/_build.py::held_launches`)."""
 
     graph: "torch.cuda.CUDAGraph"
     inputs: Tuple[torch.Tensor, ...]
     outputs: object
-    launches: List[int]
+    launches: Dict[str, int]
 
 
 # model → {"pool": memory pool its graphs share, "graphs": {key: _Graph}};
@@ -259,16 +255,10 @@ def _capture(model: DCFAYolo, fn: Callable, inputs) -> _Graph:
     with torch.cuda.stream(side):
         fn(*inputs)
     torch.cuda.current_stream(dev).wait_stream(side)
-    before = [m.LAUNCHES for m in _COUNTED]
     graph = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.graph(graph, pool=entry["pool"]):
-            outputs = fn(*inputs)
-    finally:
-        captured = [m.LAUNCHES - b for m, b in zip(_COUNTED, before)]
-        for m, b in zip(_COUNTED, before):  # nothing was launched
-            m.LAUNCHES = b
-    return _Graph(graph, inputs, outputs, captured)
+    with _build.held_launches() as held, torch.cuda.graph(graph, pool=entry["pool"]):
+        outputs = fn(*inputs)
+    return _Graph(graph, inputs, outputs, held)
 
 
 def _replay(model: DCFAYolo, key, fn: Callable, args):
@@ -292,8 +282,7 @@ def _replay(model: DCFAYolo, key, fn: Callable, args):
             buf.copy_(a)
     with span("pipeline.replay"):
         g.graph.replay()
-        for m, n in zip(_COUNTED, g.launches):
-            m.LAUNCHES += n
+        _build.add_launches(g.launches)
         outs = tuple(t.clone() for t in g.outputs)
     return type(g.outputs)(*outs) if isinstance(g.outputs, NMSResult) else outs
 

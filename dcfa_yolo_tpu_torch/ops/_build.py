@@ -7,6 +7,15 @@ plain C interface, loaded with `ctypes`.  The build runs at first use into
 sources, the headers they include and the flags, so an edited source or
 header never loads a stale library.  Nothing here runs at import time: the
 package imports on machines without `nvcc`.
+
+Every wrapper checks its launch with `check`, which also counts it under a
+stable name (`launches`): `stem_eval` (kernel A), `nms_suppress` (kernel B,
+one a call of its two phases), `stem_train` (kernel C, both dtypes) with
+`stem_train_f32` (its float32 launches), `bn_train` (kernel D, six a
+train-mode BN call) and `stem_probe_<variant>` (the split probe).  A CUDA
+graph's capture calls the wrappers but launches nothing: `held_launches`
+takes what is counted inside it back out and hands it to the caller, which
+adds it again (`add_launches`) at each replay.
 """
 
 from __future__ import annotations
@@ -17,8 +26,10 @@ import os
 import shutil
 import subprocess
 import time
+from collections import Counter
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Iterator, Mapping, Optional
 
 import torch
 
@@ -41,6 +52,7 @@ HEADERS = ("stem_core.cuh",)  # included by stem_eval.cu, stem_train.cu, stem_pr
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_SECONDS: Optional[float] = None
+_COUNTS: Counter = Counter()  # successful launches by name
 
 
 def _nvcc() -> str:
@@ -180,8 +192,40 @@ def stem_kernel_info(name: str, device: torch.device) -> dict:
     return _INFO[key]
 
 
-def check(rc: int, what: str) -> None:
-    """Raise if a C entry returned a CUDA error code."""
+def check(rc: int, what: str, *counted: str) -> None:
+    """Raise if a C entry returned a CUDA error code; else count one launch
+    under each name of `counted`."""
     if rc:
         msg = _LIB.dcfa_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+    for name in counted:
+        _COUNTS[name] += 1
+
+
+def launches(since: Optional[Mapping[str, int]] = None) -> Counter:
+    """The launches counted so far by name, or those since the snapshot
+    `since` (names that did not move left out); a missing name reads 0."""
+    out = Counter(_COUNTS)
+    if since is not None:
+        out.subtract(since)
+    return Counter({k: n for k, n in out.items() if n})
+
+
+@contextmanager
+def held_launches() -> Iterator[Dict[str, int]]:
+    """Around a graph's capture: yields a dict that on exit holds the
+    launches counted inside, which are taken back out of the counts (the
+    capture launched nothing)."""
+    before = Counter(_COUNTS)
+    held: Dict[str, int] = {}
+    try:
+        yield held
+    finally:
+        held.update(launches(before))
+        _COUNTS.clear()
+        _COUNTS.update(before)
+
+
+def add_launches(held: Mapping[str, int]) -> None:
+    """Count what a replayed graph launched (`held_launches`' dict)."""
+    _COUNTS.update(held)

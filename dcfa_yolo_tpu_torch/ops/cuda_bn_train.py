@@ -21,8 +21,7 @@ Bessel factor n/(n−1), skipped while a checkpointed forward is recomputed
 
 `bn_train` takes a CUDA tensor and launches D, or raises (three dtype
 routes, NCHW-contiguous or channels_last, at most `MAX_CHANNELS` channels):
-nothing falls back.  `LAUNCHES` counts D's launches (the trainer holds and
-replays them with its captured step).
+nothing falls back.  `_build.launches()["bn_train"]` counts D's launches.
 
 D sums in a fixed order (per-thread float over at most 8 loads, then double;
 the blocks' partials added in double in a fixed order), uses no atomics and
@@ -42,8 +41,6 @@ import torch
 
 from dcfa_yolo_tpu_torch.ops import _build
 from dcfa_yolo_tpu_torch.parallel.mesh import all_reduce_mean, world_size
-
-LAUNCHES = 0  # kernel launches
 
 THREADS = 256
 BLOCKS_PER_SM = 8    # blocks a grid aims at for each SM of the card
@@ -150,9 +147,7 @@ def _aligned(t: torch.Tensor) -> bool:
 
 
 def _check(rc: int, what: str) -> None:
-    global LAUNCHES
-    _build.check(rc, what)
-    LAUNCHES += 1
+    _build.check(rc, what, "bn_train")
 
 
 def _moments(x, p: Plan, eps, running, update, momentum, group):

@@ -17,8 +17,9 @@ kernel's bit layout (`mask_layout`): `suppress_mask_plain` and
 against the first, so that a layout error shows on the CPU too.
 
 `greedy_suppress` launches the kernel for a tensor on an sm_90 card and
-uses `greedy_suppress_plain` only for a CPU tensor; `LAUNCHES` counts its
-calls on the card (one a call, though a call launches both phases).
+uses `greedy_suppress_plain` only for a CPU tensor;
+`_build.launches()["nms_suppress"]` counts its calls on the card (one a
+call, though a call launches both phases).
 """
 
 from __future__ import annotations
@@ -30,7 +31,6 @@ import torch
 from dcfa_yolo_tpu_torch.device import require_kernels
 from dcfa_yolo_tpu_torch.ops import _build
 
-LAUNCHES = 0
 _READY: set = set()  # device indices the kernel ran on: no capability check (µs a call) there
 _TILE = 64                      # phase 1's tile side (nms_suppress.cu TILE)
 _MAX_TILES = 2 ** 31 - 1        # phase 1's grid.x: the upper triangle's tiles
@@ -177,7 +177,6 @@ def _launch(boxes: torch.Tensor, alive: torch.Tensor, iou_thres: float
     nothing is copied to the device.  The scratch, B·(Kp+1)·W·4 bytes
     (1 MB at B=8, K=1024; 71 MB at B=8, K=8400), comes from PyTorch's
     caching allocator.  Returns keep and the whole scratch."""
-    global LAUNCHES
     dev = boxes.device
     if dev.index not in _READY:
         require_kernels(dev, "greedy_suppress")
@@ -202,9 +201,8 @@ def _launch(boxes: torch.Tensor, alive: torch.Tensor, iou_thres: float
         rc = lib.nms_suppress(boxes.data_ptr(), alive.data_ptr(), scratch.data_ptr(),
                               w, keep.data_ptr(), b, k, float(iou_thres),
                               torch._C._cuda_getCurrentRawStream(dev.index))
-        _build.check(rc, "greedy_suppress")
+        _build.check(rc, "greedy_suppress", "nms_suppress")
         _READY.add(dev.index)
-        LAUNCHES += 1
     return keep, scratch
 
 

@@ -8,7 +8,8 @@ Port of `dcfa_yolo_tpu/ops/pallas_stem.py` (`pallas_stem`, `pallas_stem_d`,
 layouts).  The weight contract is the v4/v5 one (`fold_stem_params_e`).
 
 `stem_eval` launches the kernel for a CUDA tensor and uses the plain version
-`stem_eval_plain` only for a CPU tensor; `LAUNCHES` counts kernel launches.
+`stem_eval_plain` only for a CPU tensor; `_build.launches()["stem_eval"]`
+counts kernel launches.
 `stem_eval_gemm` computes the kernel's arithmetic in plain PyTorch, in the
 kernel's GEMM form (`ops/stem_core.py`).
 """
@@ -23,7 +24,6 @@ import torch.nn.functional as F
 from dcfa_yolo_tpu_torch.ops import _build, stem_core
 
 STEM_CO = 16  # the kernel is specialised to phi='n''s 16 stem channels
-LAUNCHES = 0
 
 
 def fold_stem_params(kernel_oihw: torch.Tensor, gamma: torch.Tensor,
@@ -99,7 +99,6 @@ def stem_eval(canvas: torch.Tensor, weight: torch.Tensor,
     """Fused stem on the zero-bordered raw canvas (B, 3, H+2, W+2) bf16 with
     `fold_stem_params` weights → (B, H/2, W/2, 16) bf16 NHWC.  Launches the
     CUDA kernel for a CUDA tensor; a CPU tensor takes `stem_eval_plain`."""
-    global LAUNCHES
     b, h, w = check_stem_inputs(canvas, weight, bias)
     if canvas.device.type == "cpu":
         return stem_eval_plain(canvas, weight, bias)
@@ -113,6 +112,5 @@ def stem_eval(canvas: torch.Tensor, weight: torch.Tensor,
                             bias.data_ptr(), out.data_ptr(), b, h, w,
                             stem_core.num_ctas(b, h, w, resident),
                             torch.cuda.current_stream(canvas.device).cuda_stream)
-    _build.check(rc, "stem_eval")
-    LAUNCHES += 1
+    _build.check(rc, "stem_eval", "stem_eval")
     return out

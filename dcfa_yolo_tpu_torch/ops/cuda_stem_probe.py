@@ -29,8 +29,9 @@ exactly; 'pool' is A with the GEMM swapped for the three adds, equal to
 `pool_plain` bit for bit.  'pipe' splits A's steps between conv and pool
 warps and computes every value as A does, so it is bit-identical to 'full'.
 `stem_probe` launches a variant's kernel for a CUDA tensor and uses its
-plain version (`PLAIN`) only for a CPU tensor; `LAUNCHES` counts each new
-kernel's launches ('full' counts in `cuda_stem.LAUNCHES`).
+plain version (`PLAIN`) only for a CPU tensor; `_build.launches()` counts
+each new kernel's launches under `stem_probe_<variant>` ('full' counts
+under `stem_eval`).
 """
 
 from __future__ import annotations
@@ -44,7 +45,6 @@ from dcfa_yolo_tpu_torch.ops.cuda_stem import STEM_CO, stem_eval_plain
 
 VARIANTS = ("full", "conv", "pool", "dblbuf", "pipe")
 _CODES = _build.PROBE_CODES
-LAUNCHES = {name: 0 for name in _CODES}
 _READY: set = set()  # CUDA device indices that passed require_kernels
 
 
@@ -107,6 +107,5 @@ def stem_probe(variant: str, canvas: torch.Tensor, weight: torch.Tensor,
     rc = lib.stem_probe_bf16(_CODES[variant], canvas.data_ptr(), weight.data_ptr(),
                              bias.data_ptr(), out.data_ptr(), b, h, w, n_cta,
                              torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, f"stem_probe {variant}")
-    LAUNCHES[variant] += 1
+    _build.check(rc, f"stem_probe {variant}", f"stem_probe_{variant}")
     return out

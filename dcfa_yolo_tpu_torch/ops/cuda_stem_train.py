@@ -13,8 +13,9 @@ ReLU run at pool resolution on the max or the min pool by sign(γ)
 (`_fused_fwd_impl`, `pallas_stem_train.py:296-325`).
 
 `stem_train` launches the kernel for a CUDA tensor and uses the plain
-version `stem_train_plain` only for a CPU tensor; `LAUNCHES` counts kernel
-launches of both dtypes, `LAUNCHES_F32` those in float32.
+version `stem_train_plain` only for a CPU tensor; `_build.launches()` counts
+its launches of both dtypes under `stem_train`, and those in float32 also
+under `stem_train_f32`.
 `stem_train_gemm` computes the kernel's arithmetic in plain PyTorch, in the
 kernel's GEMM form (`ops/stem_core.py`).
 `fused_train_stem` is the differentiable function; its backward
@@ -45,8 +46,6 @@ from dcfa_yolo_tpu_torch.ops.norm import batch_moments
 from dcfa_yolo_tpu_torch.parallel.mesh import reduce_in_place, world_size
 
 STEM_CO = 16  # the kernel is specialised to phi='n''s 16 stem channels
-LAUNCHES = 0      # kernel launches, both dtypes
-LAUNCHES_F32 = 0  # of which float32
 _ENTRIES = {torch.bfloat16: "stem_train_bf16", torch.float32: "stem_train_f32"}
 # the float32 kernel reads its weights from one constant-memory buffer per
 # device, written on the launch's stream: a launch on another stream than
@@ -153,7 +152,6 @@ def stem_train(x: torch.Tensor, weight: torch.Tensor, group=None
     partial of the sums; they are added here in float64, all-reduced over
     `group` in float64 where one is given (`reduce_sums`), and rounded once
     (in bf16 the local sums are then exact up to that rounding)."""
-    global LAUNCHES, LAUNCHES_F32
     if x.dim() != 4 or x.shape[3] != 3:
         raise ValueError(f"x must be (B, H, W, 3), got {tuple(x.shape)}")
     b, h, w, _ = x.shape
@@ -191,10 +189,8 @@ def stem_train(x: torch.Tensor, weight: torch.Tensor, group=None
     rc = getattr(lib, entry)(
         x.data_ptr(), weight.data_ptr(), pmax.data_ptr(), pmin.data_ptr(),
         partials.data_ptr(), b, h, w, n_cta, stream.cuda_stream)
-    _build.check(rc, "stem_train")
-    LAUNCHES += 1
-    if x.dtype == torch.float32:
-        LAUNCHES_F32 += 1
+    _build.check(rc, "stem_train", "stem_train",
+                 *(("stem_train_f32",) if x.dtype == torch.float32 else ()))
     totals = partials.sum(dim=0)
     if group is not None:
         return pmax, pmin, reduce_sums(totals, b, group)

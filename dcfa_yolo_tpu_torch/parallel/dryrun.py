@@ -52,7 +52,7 @@ def train_rank(rank: int, world: int, group, spec: Dict) -> Dict:
     fields), `state_dict` (numpy, the train graph's) or `seed` (the reference
     init), `batch` (host arrays: the global batch, or this rank's own with
     `per_rank`), `step_mode`, `steps`, `lr`, and optionally `tc`
-    (TrainConfig fields), `flat_tail`, `device`, `tf32`, `grad` (return the
+    (TrainConfig fields), `device`, `tf32`, `grad` (return the
     first step's flat gradient) and `eval` (the first step's `eval_step`
     loss terms).  Returns the loss terms per step, host ms per step, the
     kernels' launches, a digest of the whole state after each step (equal
@@ -60,7 +60,7 @@ def train_rank(rank: int, world: int, group, spec: Dict) -> Dict:
     first step as numpy state_dicts."""
     from dcfa_yolo_tpu_torch.config import ModelConfig, TrainConfig
     from dcfa_yolo_tpu_torch.models.yolo import DCFAYolo, init_model
-    from dcfa_yolo_tpu_torch.ops import cuda_stem_train
+    from dcfa_yolo_tpu_torch.ops import _build
     from dcfa_yolo_tpu_torch.train.trainer import Trainer
 
     started = time.time()
@@ -74,12 +74,11 @@ def train_rank(rank: int, world: int, group, spec: Dict) -> Dict:
     else:
         model = init_model(cfg, spec.get("seed", 0), dev, train=True)
     tr = Trainer(model, TrainConfig(**spec.get("tc", {})), device=dev,
-                 step_mode=spec.get("step_mode", "auto"), group=group,
-                 flat_tail=spec.get("flat_tail", True))
+                 step_mode=spec.get("step_mode", "auto"), group=group)
     local = spec["batch"] if spec.get("per_rank") else shard_batch(spec["batch"], rank, world)
     batch = tr.put_batch(*local[:5])
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    cuda_stem_train.LAUNCHES = cuda_stem_train.LAUNCHES_F32 = 0
+    before = _build.launches()
     out = dict(terms=[], step_ms=[], digests=[], step_mode=tr.step_mode,
                train_stem=tr.train_stem, started=started)
     for i in range(spec.get("steps", 1)):
@@ -96,8 +95,9 @@ def train_rank(rank: int, world: int, group, spec: Dict) -> Dict:
                        ema=_numpy(st.ema))
             if spec.get("eval"):
                 out["eval"] = [float(t) for t in tr.eval_step(batch)]
-    out.update(launches={"stem_train": cuda_stem_train.LAUNCHES,
-                         "stem_train_f32": cuda_stem_train.LAUNCHES_F32},
+    n = _build.launches(before)
+    out.update(launches={"stem_train": n["stem_train"],
+                         "stem_train_f32": n["stem_train_f32"]},
                ema_updates=tr.ema.updates)
     return out
 
@@ -111,7 +111,7 @@ def stem_rank(rank: int, world: int, group, spec: Dict) -> Dict:
     kernel and the sums' all-reduce), each call ending in a synchronise;
     with `sums`, also the group's sums from `stem_train` and from its plain
     twin `stem_train_plain` (after the counted launch)."""
-    from dcfa_yolo_tpu_torch.ops import cuda_stem_train
+    from dcfa_yolo_tpu_torch.ops import _build, cuda_stem_train
     from dcfa_yolo_tpu_torch.ops.cuda_stem_train import fused_train_stem
 
     started = time.time()
@@ -126,9 +126,9 @@ def stem_rank(rank: int, world: int, group, spec: Dict) -> Dict:
     x = torch.from_numpy(x).to(dev, dt).requires_grad_(True)
     params = [torch.from_numpy(np.asarray(spec[k], np.float32)).to(dev).requires_grad_(True)
               for k in ("kernel", "gamma", "beta")]
-    cuda_stem_train.LAUNCHES = 0
+    before = _build.launches()
     y, mean, var = fused_train_stem(x, *params, spec.get("eps", 1e-5), group)
-    launches = cuda_stem_train.LAUNCHES
+    launches = _build.launches(before)["stem_train"]
     grads = torch.autograd.grad(y, [x, *params], torch.from_numpy(gy).to(dev, dt))
     host = lambda t: t.detach().float().cpu().numpy()
     out = dict(y=host(y), mean=host(mean), var=host(var), launches=launches,
@@ -221,7 +221,7 @@ def dryrun_rank(rank: int, world: int, group, modes: Sequence[str],
         lines.append(f"dryrun({world}) rank {rank} [{res['step_mode']}] ok: "
                      f"loss={loss:.4f}, stem {res['train_stem']}, {dev}")
     model, batch = fused_check.setup(n_batch=2 * world)
-    state, loss = fused_check.run_fused_flat(model, batch, group, rank, device=dev)
+    state, loss = fused_check.run_fused(model, batch, group, rank, device=dev)
     mean, var = fused_check.global_moments(model, batch)
     n = len(batch[0])
     np.testing.assert_allclose(state["batch_stats"]["bn.running_mean"], 0.1 * mean,

@@ -5,7 +5,7 @@ stand-in model (`dcfa_yolo_tpu/parallel/fused_check.py`).
 scope names `d1`, `bn`, `d2`, so `models/convert.py::from_jax_variables`
 carries the JAX module's variables over) is driven through the real port
 `Trainer` step code, as the JAX module drives the real `make_train_step`:
-the same group, step modes, flat or per-tensor tail and EMA.  The BN
+the same group, step modes, optimizer tail and EMA.  The BN
 running statistics after one fused step over W ranks must be those of the
 global batch's moments.  Used by `parallel/dryrun.py` and
 tests/test_torch_parallel.py.
@@ -28,7 +28,7 @@ from dcfa_yolo_tpu_torch.train.loss import LossBreakdown
 from dcfa_yolo_tpu_torch.train.trainer import Trainer
 
 # plain SGD(lr): what the JAX check's optax.sgd(1.0) and its flat-tail
-# config compute
+# config compute, and the port's one tail with this config
 CHECK_CONFIG = TrainConfig(max_boxes=4, weight_decay=0.0, grad_clip_norm=0.0,
                            momentum=0.0, nesterov=False)
 
@@ -106,10 +106,10 @@ def setup(n_batch: int = 8, seed: int = 0) -> Tuple[TinyBNNet, Tuple]:
 
 
 def make_state(model: nn.Module, group=None, step_mode: str = "fused",
-               flat_tail: bool = True, device="cpu") -> Trainer:
+               device="cpu") -> Trainer:
     """The port's trainer (which owns the training state) over `model`."""
     return Trainer(model, CHECK_CONFIG, device=device, step_mode=step_mode,
-                   group=group, flat_tail=flat_tail, criterion=MSECriterion())
+                   group=group, criterion=MSECriterion())
 
 
 def host_state(tr: Trainer) -> Dict[str, Dict[str, np.ndarray]]:
@@ -119,21 +119,14 @@ def host_state(tr: Trainer) -> Dict[str, Dict[str, np.ndarray]]:
 
 
 def run_fused(model: nn.Module, batch, group=None, rank: int = 0, lr: float = 1e-2,
-              flat_tail: bool = False, step_mode: str = "fused", device="cpu"):
+              step_mode: str = "fused", device="cpu"):
     """One real step of a copy of `model` on this rank's slice of the global
-    `batch` over `group` (None: the whole batch in one process); the
-    per-tensor tail, as the JAX check's optax chain.  Returns (host
-    {"params", "batch_stats"} state_dicts, loss)."""
-    tr = make_state(copy.deepcopy(model), group, step_mode, flat_tail, device)
+    `batch` over `group` (None: the whole batch in one process).  Returns
+    (host {"params", "batch_stats"} state_dicts, loss)."""
+    tr = make_state(copy.deepcopy(model), group, step_mode, device)
     local = shard_batch(batch, rank, world_size(group))
     lb = tr.train_step(tr.put_batch(*local), lr)
     return host_state(tr), float(lb.total)
-
-
-def run_fused_flat(model: nn.Module, batch, group=None, rank: int = 0,
-                   lr: float = 1e-2, device="cpu"):
-    """`run_fused` through the flat tail, the trainer's default."""
-    return run_fused(model, batch, group, rank, lr, flat_tail=True, device=device)
 
 
 def global_moments(model: TinyBNNet, batch) -> Tuple[np.ndarray, np.ndarray]:
@@ -146,11 +139,10 @@ def global_moments(model: TinyBNNet, batch) -> Tuple[np.ndarray, np.ndarray]:
 
 def rank_checks(rank: int, world: int, group, state_dict, batch, dup) -> Dict:
     """One rank of the check (a `parallel/mesh.py::run_ranks` target): the
-    fused step on the per-tensor and the flat tail over the global `batch`,
-    and fused and split over `dup`, whose per-rank slices are equal."""
+    fused step over the global `batch`, and fused and split over `dup`,
+    whose per-rank slices are equal."""
     model = TinyBNNet()
     model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in state_dict.items()})
     return {"fused": run_fused(model, batch, group, rank),
-            "fused_flat": run_fused_flat(model, batch, group, rank),
             "dup_fused": run_fused(model, dup, group, rank),
             "dup_split": run_fused(model, dup, group, rank, step_mode="split")}

@@ -12,7 +12,6 @@ from __future__ import annotations
 
 from typing import Dict
 
-import numpy as np
 import torch
 
 from dcfa_yolo_tpu_torch.infer.pipeline import detect_batch, detect_batch_graph
@@ -39,15 +38,16 @@ def serve_rank(rank: int, world: int, group, spec: Dict) -> Dict:
     calls and over the last one."""
     from dcfa_yolo_tpu_torch.config import ModelConfig
     from dcfa_yolo_tpu_torch.models.yolo import init_model
-    from dcfa_yolo_tpu_torch.ops import cuda_nms, cuda_stem
+    from dcfa_yolo_tpu_torch.ops import _build
     dev = torch.device(spec.get("device", "cpu"))
     use_device(dev)
     model = init_model(ModelConfig(**spec["cfg"]), spec.get("seed", 0), dev)
     total = {"stem_eval": 0, "nms_suppress": 0}
     for _ in range(spec.get("calls", 1)):
-        cuda_stem.LAUNCHES = cuda_nms.LAUNCHES = 0
+        before = _build.launches()
         res = detect_batch_shard(model, *spec["inputs"], rank, world, **spec["kw"])
-        last = {"stem_eval": cuda_stem.LAUNCHES, "nms_suppress": cuda_nms.LAUNCHES}
+        n = _build.launches(before)
+        last = {k: n[k] for k in total}
         total = {k: total[k] + v for k, v in last.items()}
     return dict(result={f: getattr(res, f).cpu().numpy() for f in res._fields
                         if getattr(res, f) is not None},

@@ -1,11 +1,12 @@
 """The optimizer and EMA tail on flat float32 vectors
-(`dcfa_yolo_tpu/train/flat_opt.py`), the trainer's default tail.
+(`dcfa_yolo_tpu/train/flat_opt.py`), the trainer's one tail.
 
 The parameters live as views into one float32 vector, the BN running
 statistics into another (`flatten_into`), so the tail runs a few large
 elementwise ops on whole vectors instead of several per parameter, and the
 flat gradient is the one buffer data-parallel training all-reduces.  The
-chain is `train/optim.py`'s, in optax's order:
+chain is the JAX package's optax chain (`train/optim.py:60-86` there), in
+its order:
 
     clip_by_global_norm → masked coupled weight decay (conv kernels only)
     → nesterov SGD momentum | Adam → BiFPN update zeroed (untrained)
@@ -13,10 +14,9 @@ chain is `train/optim.py`'s, in optax's order:
 
 and the EMA ramp d(u) = decay · (1 − e^(−u/τ)) runs over the parameters and
 the BN statistics.  The masks come once from the parameter names
-(`optim.py`'s predicates).  Each elementwise op is the one `optim.py` and
-`ema.py` apply per tensor, and the clip's global norm is taken over the
-same per-parameter norms, so on the CPU the flat tail is bit-equal to the
-per-tensor path (`Trainer(flat_tail=False)`).
+(`train/optim.py`'s predicates).  Clipping uses optax's formula,
+`(g / norm) · max_norm` when norm ≥ max_norm (`clip_grad_norm_` would add
+1e-6), with the global norm taken over the per-parameter norms.
 
 The values that change from step to step (the learning rate, the EMA's d
 and 1 − d, Adam's bias corrections) are 0-dim float32 tensors on the
@@ -201,7 +201,7 @@ def flat_updates(cfg: TrainConfig, factors: FlatFactors, g: torch.Tensor,
 @torch.no_grad()
 def flat_ema(ema_vec: torch.Tensor, new_vec: torch.Tensor, updates: int,
              decay: float, tau: float) -> None:
-    """The EMA ramp on one flat vector, in place (`ema.py::ModelEMA.update`);
+    """The EMA ramp on one flat vector, in place (the JAX `update_ema`);
     `updates` is the counter after this step's increment."""
     ema_step(ema_vec, new_vec, *ema_decay(updates, decay, tau))
 
@@ -214,10 +214,10 @@ def ema_step(ema_vec: torch.Tensor, new_vec: torch.Tensor, d, one_minus_d) -> No
 
 
 class FlatOptimizer:
-    """`optim.py::Optimizer` on the flat parameter vector `flat` (whose
-    views the model's parameters are).  `names` and the per-parameter
-    views of its state (`trace`, or `mu` / `nu` and `count`) read as the
-    per-tensor optimizer's do."""
+    """SGD with nesterov momentum or Adam on the flat parameter vector `flat`
+    (whose views the model's parameters are).  `names` and the
+    per-parameter views of its state (`trace`, or `mu` / `nu`) name and
+    shape it as the parameters are; `state` gives it by parameter name."""
 
     def __init__(self, cfg: TrainConfig, named_params: Sequence[Tuple[str, torch.Tensor]],
                  flat: torch.Tensor, train_bifpn: bool = True):
@@ -283,9 +283,10 @@ class FlatOptimizer:
 
 
 class FlatEMA:
-    """`ema.py::ModelEMA` over the flat parameter and statistics vectors.
-    `variables` maps the model's floating state_dict names, in its order, to
-    views of the two EMA vectors."""
+    """The EMA of the model state over the flat parameter and statistics
+    vectors, a fresh copy of them at init.  `variables` maps the model's
+    floating state_dict names, in its order, to views of the two EMA
+    vectors."""
 
     def __init__(self, sd_names: Sequence[str], params: Tuple[FlatLayout, torch.Tensor],
                  stats: Tuple[FlatLayout, torch.Tensor], updates: int = 0):

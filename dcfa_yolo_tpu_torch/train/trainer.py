@@ -8,11 +8,9 @@ the EMA weights in eval mode.  The step is split into `forward`, `loss`,
 `backward` and `update` so a caller can time its stages.  `state` reads and
 restores the whole training state (exact resume, `train.py:362-384`).
 
-The optimizer and EMA run on flat vectors by default (`flat_tail`,
-`train/flat_opt.py`, as the JAX fused step does, `trainer.py:256`): the
-parameters and the BN statistics are views into two float32 vectors and
-the gradient is raveled into one.  `flat_tail=False` keeps the per-tensor
-path (`train/optim.py`, `train/ema.py`), bit-equal on the CPU.
+The optimizer and EMA run on flat vectors (`train/flat_opt.py`, as the JAX
+fused step does, `trainer.py:256`): the parameters and the BN statistics
+are views into two float32 vectors and the gradient is raveled into one.
 
 Data parallel (`group`, one process a rank, each with its slice of the
 global batch), in the JAX Trainer's two step modes:
@@ -29,52 +27,39 @@ global batch), in the JAX Trainer's two step modes:
 After every step the replicas are equal.  No DDP wrapper: it would broadcast
 rank 0's BN statistics and average per-rank-normalised losses.
 
-On one CUDA device with the flat tail (`capture="auto"`), the step is one
-CUDA graph: its shapes are static and it makes no host synchronisation, so
-after two eager steps of a key (the batch's shapes and dtypes, the freeze
-phase, the stem graph) the third call captures the device work (forward,
-loss, backward, ravel, optimizer and EMA: `_capture`) and replays it,
-and every later call of the key copies its batch into the graph's inputs,
-writes the step's scalars (`flat_opt.py`) and replays.  A new key drops
-the graph and warms up again.  The CPU, a process group and the per-tensor
-tail run the eager step.
+On one CUDA device (`capture="auto"`), the step is one CUDA graph: its
+shapes are static and it makes no host synchronisation, so after two eager
+steps of a key (the batch's shapes and dtypes, the freeze phase, the stem
+graph) the third call captures the device work (forward, loss, backward,
+ravel, optimizer and EMA: `_capture`) and replays it, and every later call
+of the key copies its batch into the graph's inputs, writes the step's
+scalars (`flat_opt.py`) and replays.  A new key drops the graph and warms
+up again.  The CPU and a process group run the eager step.
 """
 
 from __future__ import annotations
 
 import copy
 import warnings
-from typing import Dict, NamedTuple, Sequence, Tuple, Union
+from typing import Dict, NamedTuple, Sequence, Union
 
 import numpy as np
 import torch
 
 from dcfa_yolo_tpu_torch.config import TrainConfig
+from dcfa_yolo_tpu_torch.data.batch import Batch
 from dcfa_yolo_tpu_torch.device import resolve_device
 from dcfa_yolo_tpu_torch.models.yolo import _DTYPES
-from dcfa_yolo_tpu_torch.ops import cuda_bn_train, cuda_stem_train
+from dcfa_yolo_tpu_torch.ops import _build, cuda_stem_train
 from dcfa_yolo_tpu_torch.parallel.mesh import broadcast_state, reduce_in_place, world_size
-from dcfa_yolo_tpu_torch.train.ema import ModelEMA
 from dcfa_yolo_tpu_torch.train.flat_opt import (FlatAdam, FlatEMA, FlatLayout,
                                                 FlatOptimizer, FlatSGD, flatten_into)
 from dcfa_yolo_tpu_torch.train.loss import LossBreakdown, YoloLoss
-from dcfa_yolo_tpu_torch.train.optim import Optimizer
 from dcfa_yolo_tpu_torch.utils.profiling import count, span
 
 STEP_MODES = ("auto", "fused", "split")
 CAPTURE_MODES = ("auto", "off")
 WARMUP_STEPS = 2  # eager steps of a key before its step is captured
-# the kernels' counters a captured step holds, and adds at each replay
-HELD_COUNTERS = ((cuda_stem_train, "LAUNCHES"), (cuda_stem_train, "LAUNCHES_F32"),
-                 (cuda_bn_train, "LAUNCHES"))
-
-
-class Batch(NamedTuple):
-    rgb: torch.Tensor        # (B, H, W, 3) in [0, 1], compute dtype
-    nir: torch.Tensor        # (B, H, W, 3)
-    gt_boxes: torch.Tensor   # (B, M, 4) xyxy pixels
-    gt_labels: torch.Tensor  # (B, M)
-    gt_mask: torch.Tensor    # (B, M)
 
 
 class TrainState(NamedTuple):
@@ -86,8 +71,9 @@ class TrainState(NamedTuple):
 
 
 class FlatTrainState(NamedTuple):
-    """The flat tail's state (`trainer.py:43-52`): the live vectors
-    themselves, no copies.  `state` gives the same as per-name dicts."""
+    """The training state as the flat vectors (`trainer.py:43-52`): the live
+    vectors themselves, no copies.  `state` gives the same as per-name
+    dicts."""
 
     flat_params: torch.Tensor
     flat_stats: torch.Tensor
@@ -97,27 +83,26 @@ class FlatTrainState(NamedTuple):
     ema_updates: int
 
 
-def graph_route(capture: str, device: torch.device, group, flat_tail: bool) -> bool:
+def graph_route(capture: str, device: torch.device, group) -> bool:
     """Whether a trainer replays its step from a CUDA graph: `capture`
     'auto' on a CUDA device, with no process group (the data-parallel step
-    keeps its all-reduces and kernel C's host check) and the flat tail
-    (whose per-step values live on the device)."""
-    return capture == "auto" and device.type == "cuda" and group is None and flat_tail
+    keeps its all-reduces and kernel C's host check)."""
+    return capture == "auto" and device.type == "cuda" and group is None
 
 
 class _StepGraph(NamedTuple):
     """One captured step: its key, the graph, the static inputs it reads
     (the capturing call's batch), its static outputs (the stacked loss
-    terms and the flat gradient), what it adds to each of `HELD_COUNTERS`
-    (kernel C's launches, all and float32, and kernel D's launches) and
-    the bytes its private memory pool holds."""
+    terms and the flat gradient), the kernel launches it holds by name
+    (`ops/_build.py::held_launches`) and the bytes its private memory pool
+    holds."""
 
     key: tuple
     graph: "torch.cuda.CUDAGraph"
     inputs: Batch
     terms: torch.Tensor
     grad: torch.Tensor
-    launches: Tuple[int, ...]
+    launches: Dict[str, int]
     pool_bytes: int
 
 
@@ -147,13 +132,13 @@ class Trainer:
     `criterion`: a loss with YoloLoss's call and a `group` attribute (the
     trainer sets it); default `YoloLoss`.
     `capture`: 'auto' replays the step from a CUDA graph wherever it can
-    (module docstring: a CUDA device, no group, the flat tail), 'off' runs
-    every step eagerly."""
+    (module docstring: a CUDA device, no group), 'off' runs every step
+    eagerly."""
 
     def __init__(self, model, train_cfg: TrainConfig = TrainConfig(),
                  device="cuda", ema_updates: int = 0, train_bifpn: bool = True,
-                 step_mode: str = "auto", group=None, flat_tail: bool = True,
-                 criterion=None, capture: str = "auto"):
+                 step_mode: str = "auto", group=None, criterion=None,
+                 capture: str = "auto"):
         if step_mode not in STEP_MODES:
             raise ValueError(f"step_mode must be one of {STEP_MODES}, got {step_mode!r}")
         if capture not in CAPTURE_MODES:
@@ -187,24 +172,17 @@ class Trainer:
         buffers = list(self.model.named_buffers())
         self._buffers = [b for _, b in buffers]
         # where each parameter (statistic) sits in the flat gradient (the
-        # all-reduced statistics); with the flat tail, in the live vectors
+        # all-reduced statistics) and in the live vectors
         self._p_layout, self._s_layout = FlatLayout(self._named), FlatLayout(buffers)
-        self.flat_tail = flat_tail
-        self.flat_params = self.flat_stats = None
-        if flat_tail:
-            self.flat_params = flatten_into(self._named)
-            self.flat_stats = flatten_into(buffers)
-            self.optimizer = FlatOptimizer(train_cfg, self._named, self.flat_params,
-                                           train_bifpn)
-            self.ema = FlatEMA([k for k, v in self.model.state_dict().items()
-                                if v.is_floating_point()],
-                               (self._p_layout, self.flat_params),
-                               (self._s_layout, self.flat_stats), ema_updates)
-        else:
-            self.optimizer = Optimizer(train_cfg, self._named, train_bifpn)
-            self.ema = ModelEMA(self.model, ema_updates)
+        self.flat_params = flatten_into(self._named)
+        self.flat_stats = flatten_into(buffers)
+        self.optimizer = FlatOptimizer(train_cfg, self._named, self.flat_params, train_bifpn)
+        self.ema = FlatEMA([k for k, v in self.model.state_dict().items()
+                            if v.is_floating_point()],
+                           (self._p_layout, self.flat_params),
+                           (self._s_layout, self.flat_stats), ema_updates)
         self.steps = 0  # steps taken: the request id of their spans
-        self.graph_route = graph_route(capture, self.device, group, flat_tail)
+        self.graph_route = graph_route(capture, self.device, group)
         self._graph = None        # the captured step (`_StepGraph`) of the last key
         self._warm = (None, 0)    # (key, its eager steps in a row)
         self._counts = {"captures": 0, "replays": 0, "eager": 0}
@@ -256,10 +234,8 @@ class Trainer:
                freeze_backbone: bool = False) -> None:
         """The optimizer and EMA step from the gradients (per parameter, or
         one flat vector in the parameters' order)."""
-        if self.flat_tail and not isinstance(grads, torch.Tensor):
+        if not isinstance(grads, torch.Tensor):
             grads = self._p_layout.ravel(grads)
-        elif not self.flat_tail and isinstance(grads, torch.Tensor):
-            grads = self._p_layout.views(grads)
         self.optimizer.step(grads, lr, freeze_backbone)
         self.ema.update(self.model, self.tc.ema_decay, self.tc.ema_tau)
 
@@ -333,8 +309,8 @@ class Trainer:
         memory pool of its own: the stages, with the optimizer's and the
         EMA's kernels (`apply`) as the update; their host halves (`advance`)
         run before each replay.  A capture records and runs nothing, so no
-        state moves; the kernels' counters (`HELD_COUNTERS`) are put back
-        (a replay adds what the graph holds).  A capture that fails raises:
+        state moves; the launches counted during it are held by the graph
+        (`ops/_build.py::held_launches`), which a replay adds.  A capture that fails raises:
         nothing falls back to the eager step.
 
         cuBLAS keeps a workspace (and cuBLASLt another) for each stream it
@@ -348,16 +324,12 @@ class Trainer:
             self.optimizer.apply(g, freeze_backbone)
             self.ema.apply()
 
-        before = tuple(getattr(m, name) for m, name in HELD_COUNTERS)
         graph = torch.cuda.CUDAGraph()
         torch._C._cuda_clearCublasWorkspaces()
         try:
-            with torch.cuda.graph(graph):
+            with _build.held_launches() as held, torch.cuda.graph(graph):
                 terms, g = self._stages(batch, update)
         finally:
-            held = tuple(getattr(m, name) - b for (m, name), b in zip(HELD_COUNTERS, before))
-            for (m, name), b in zip(HELD_COUNTERS, before):
-                setattr(m, name, b)
             torch._C._cuda_clearCublasWorkspaces()
         self._counts["captures"] += 1
         return _StepGraph(key, graph, batch, terms, g, held, pool_bytes(graph))
@@ -373,11 +345,10 @@ class Trainer:
                 dst.copy_(src)
         self.optimizer.advance(lr)
         self.ema.advance(self.tc.ema_decay, self.tc.ema_tau)
-        if g.launches[1]:
+        if g.launches.get("stem_train_f32"):
             cuda_stem_train.order_f32(torch.cuda.current_stream(self.device))
         g.graph.replay()
-        for (m, name), n in zip(HELD_COUNTERS, g.launches):
-            setattr(m, name, getattr(m, name) + n)
+        _build.add_launches(g.launches)
         self._counts["replays"] += 1
         return (LossBreakdown(*g.terms.clone().unbind(0)),
                 g.grad.clone() if want_grad else None)
@@ -427,9 +398,7 @@ class Trainer:
 
     @property
     def flat_state(self) -> FlatTrainState:
-        """The flat tail's vectors (`flat_tail=True` only)."""
-        if not self.flat_tail:
-            raise ValueError("the per-tensor tail (flat_tail=False) has no flat state")
+        """The training state's flat vectors."""
         return FlatTrainState(self.flat_params, self.flat_stats, self.optimizer.opt,
                               *self.ema.vecs, self.ema.updates)
 

@@ -2,7 +2,7 @@
 
 A checkpoint bundles what exact resume needs, under the JAX payload's keys:
 `params` and `batch_stats` (state_dict names → tensors), `ema` (the EMA of
-every floating state entry), `opt_state` (`Optimizer.state()`),
+every floating state entry), `opt_state` (`FlatOptimizer.state()`),
 `ema_updates` and `epoch`.  It is one `torch.save` file of tensors, dicts
 and numbers, written to `<path>.tmp` and then renamed, and it loads with
 `torch.load(..., weights_only=True)`.  Checkpoints always hold the

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from dcfa_yolo_tpu_torch.ops import _build
 from dcfa_yolo_tpu_torch.ops import cuda_bn_train as cbt
 from dcfa_yolo_tpu_torch.ops.norm import BatchNorm, batch_moments, recomputing
 
@@ -99,10 +100,10 @@ def test_plain_route_equals_the_seed_branch(route, nhwc, eps, momentum):
     bn_new = _bn(16, eps, momentum, rng)
     bn_old = _bn(16, eps, momentum, np.random.default_rng(17))
     bn_old.load_state_dict(bn_new.state_dict())
-    before = cbt.LAUNCHES
+    before = _build.launches()
     new = _run(lambda bn, x, dt: bn(x, dt), bn_new, x, y_dtype, w)
     old = _run(_seed_branch, bn_old, x, y_dtype, w)
-    assert cbt.LAUNCHES == before
+    assert _build.launches(before)["bn_train"] == 0
     assert new[0].dtype == y_dtype and new[3].dtype == x_dtype
     for a, b in zip(new, old):
         assert torch.equal(a, b)
@@ -146,10 +147,10 @@ def _params(c, device="cpu"):
 @pytest.mark.parametrize("route", ROUTES, ids=["f32-bf16", "bf16-bf16", "f32-f32"])
 def test_kernel_refuses_a_cpu_tensor(route):
     x = torch.zeros(2, 16, 4, 4, dtype=route[0])
-    before = cbt.LAUNCHES
+    before = _build.launches()
     with pytest.raises(ValueError, match="CUDA"):
         cbt.bn_train(x, *_params(16), 0.03, 1e-3, route[1])
-    assert cbt.LAUNCHES == before
+    assert _build.launches(before)["bn_train"] == 0
 
 
 @pytest.mark.parametrize("case", ["bf16-f32", "f16-f16", "f32-f16", "f64-f64", "strided",
@@ -273,10 +274,10 @@ def _cosine(a, b):
 @pytest.mark.parametrize("shape,nhwc,x_dtype,y_dtype", CARD_SHAPES)
 def test_kernel_matches_plain(cuda, shape, nhwc, x_dtype, y_dtype):
     x, bn, g = _card_case(cuda, shape, nhwc, x_dtype, sum(shape))
-    before = cbt.LAUNCHES
+    before = _build.launches()
     kern, plain = _d_and_plain(bn, x, y_dtype, g)
     torch.cuda.synchronize()
-    assert cbt.LAUNCHES == before + 6
+    assert _build.launches(before)["bn_train"] == 6
     (y, rm, rv, dx, dw, db), (y_p, rm_p, rv_p, dx_p, dw_p, db_p) = kern, plain
     assert y.dtype == y_dtype and y.stride() == x.stride() and dx.stride() == x.stride()
     gamma = bn.weight.abs().view(1, -1, 1, 1)
@@ -343,10 +344,10 @@ def test_kernel_wrapper_refuses_on_the_card(cuda, case):
         x, dtype = x.half(), torch.float16
     else:
         x = x.transpose(2, 3)
-    before = cbt.LAUNCHES
+    before = _build.launches()
     with pytest.raises(ValueError):
         bn(x, dtype)
-    assert cbt.LAUNCHES == before
+    assert _build.launches(before)["bn_train"] == 0
 
 
 @pytest.mark.cuda
@@ -357,7 +358,7 @@ def test_captured_phi_n_step_counts_its_bn_calls(cuda):
     from dcfa_yolo_tpu_torch.config import ModelConfig, TrainConfig
     from dcfa_yolo_tpu_torch.models.yolo import init_model
     from dcfa_yolo_tpu_torch.parallel.dryrun import dry_batch
-    from dcfa_yolo_tpu_torch.train.trainer import HELD_COUNTERS, WARMUP_STEPS, Trainer
+    from dcfa_yolo_tpu_torch.train.trainer import WARMUP_STEPS, Trainer
 
     cfg = ModelConfig(num_classes=1, phi="n", input_shape=(64, 64), compute_dtype="bfloat16")
     tr = Trainer(init_model(cfg, 0, cuda, train=True), TrainConfig(max_boxes=4), device=cuda)
@@ -365,10 +366,10 @@ def test_captured_phi_n_step_counts_its_bn_calls(cuda):
     hooks = [m.register_forward_pre_hook(lambda m, a: calls.append(1))
              for m in tr.model.modules() if isinstance(m, BatchNorm)]
     b = tr.put_batch(*dry_batch(4, (64, 64)))
-    before = cbt.LAUNCHES
+    before = _build.launches()
     tr.train_step(b, 1e-2)
     torch.cuda.synchronize()
-    eager = cbt.LAUNCHES - before
+    eager = _build.launches(before)["bn_train"]
     n_bn = len(calls)
     for h in hooks:
         h.remove()
@@ -376,12 +377,11 @@ def test_captured_phi_n_step_counts_its_bn_calls(cuda):
     for _ in range(WARMUP_STEPS):  # the second warm-up step, then the capture
         tr.train_step(b, 1e-2)
     assert tr.graph_stats()["captures"] == 1
-    held = dict(zip(HELD_COUNTERS, tr._graph.launches))
-    assert held[(cbt, "LAUNCHES")] == eager
-    before, replays = cbt.LAUNCHES, tr.graph_stats()["replays"]
+    assert tr._graph.launches["bn_train"] == eager
+    before, replays = _build.launches(), tr.graph_stats()["replays"]
     tr.train_step(b, 1e-2)
     torch.cuda.synchronize()
-    assert cbt.LAUNCHES - before == eager
+    assert _build.launches(before)["bn_train"] == eager
     assert tr.graph_stats()["replays"] == replays + 1
 
 

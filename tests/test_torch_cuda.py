@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from dcfa_yolo_tpu_torch.ops import cuda_nms, cuda_stem, cuda_stem_train
+from dcfa_yolo_tpu_torch.ops import _build, cuda_nms, cuda_stem, cuda_stem_train
 
 pytestmark = pytest.mark.cuda
 
@@ -48,10 +48,10 @@ def test_stem_kernel_matches_plain(cuda, shape):
     var = torch.from_numpy((rng.random(16) + 0.5).astype(np.float32))
     w_f, bias = (t.to(cuda) for t in cuda_stem.fold_stem_params(k, gamma, beta, mean, var))
     x = torch.from_numpy(canvas).to(cuda, torch.bfloat16)
-    before = cuda_stem.LAUNCHES
+    before = _build.launches()
     out = cuda_stem.stem_eval(x, w_f, bias)
     torch.cuda.synchronize()
-    assert cuda_stem.LAUNCHES == before + 1
+    assert _build.launches(before)["stem_eval"] == 1
     ref = cuda_stem.stem_eval_plain(x, w_f, bias)
     out, ref = out.float().cpu().numpy(), ref.float().cpu().numpy()
     np.testing.assert_allclose(out, ref, atol=0.03, rtol=0.02)
@@ -102,10 +102,10 @@ def _nms_inputs(cuda, b, k):
 def test_nms_kernel_matches_plain_exactly(cuda, b, k):
     boxes, alive = _nms_inputs(cuda, b, k)
     for thr in (0.5, 0.3, 0.7):
-        before = cuda_nms.LAUNCHES
+        before = _build.launches()
         keep = cuda_nms.greedy_suppress(boxes, alive, thr)
         torch.cuda.synchronize()
-        assert cuda_nms.LAUNCHES == before + 1
+        assert _build.launches(before)["nms_suppress"] == 1
         ref = cuda_nms.greedy_suppress_plain(boxes, alive, thr)
         assert torch.equal(keep, ref)
         if b > 1:
@@ -185,10 +185,10 @@ def test_train_stem_kernel_matches_plain(cuda, shape):
     x = torch.from_numpy(rng.random((b, h, w, 3), np.float32)).to(cuda, torch.bfloat16)
     k = torch.from_numpy((rng.standard_normal((16, 3, 3, 3)) * 0.3).astype(np.float32))
     k = k.to(cuda, torch.bfloat16)
-    before = cuda_stem_train.LAUNCHES
+    before = _build.launches()
     pmax, pmin, sums = cuda_stem_train.stem_train(x, k)
     torch.cuda.synchronize()
-    assert cuda_stem_train.LAUNCHES == before + 1
+    assert _build.launches(before)["stem_train"] == 1
     rmax, rmin, rsums = cuda_stem_train.stem_train_plain(x, k)
     for got, ref in ((pmax, rmax), (pmin, rmin)):
         got, ref = got.float().cpu().numpy(), ref.float().cpu().numpy()
@@ -204,17 +204,16 @@ def test_train_stem_f32_kernel_matches_plain(cuda, shape):
     """Kernel C's float32 instantiation against stem_train_plain: only the
     conv's f32 summation order differs, so the pools agree within 1e-5 of
     max|ĉ| plus 1e-5 relative and the sums within 1e-4 relative; the launch
-    is counted in LAUNCHES and LAUNCHES_F32, and a second launch repeats the
-    sums bit for bit."""
+    is counted under stem_train and stem_train_f32, and a second launch
+    repeats the sums bit for bit."""
     b, h, w = shape
     rng = np.random.default_rng(h * w + 1)
     x = torch.from_numpy(rng.random((b, h, w, 3), np.float32)).to(cuda)
     k = torch.from_numpy((rng.standard_normal((16, 3, 3, 3)) * 0.3).astype(np.float32)).to(cuda)
-    before = (cuda_stem_train.LAUNCHES, cuda_stem_train.LAUNCHES_F32)
+    before = _build.launches()
     pmax, pmin, sums = cuda_stem_train.stem_train(x, k)
     torch.cuda.synchronize()
-    assert (cuda_stem_train.LAUNCHES, cuda_stem_train.LAUNCHES_F32) == (
-        before[0] + 1, before[1] + 1)
+    assert _build.launches(before) == {"stem_train": 1, "stem_train_f32": 1}
     assert pmax.dtype == pmin.dtype == torch.float32
     rmax, rmin, rsums = cuda_stem_train.stem_train_plain(x, k)
     c_max = max(rmax.abs().max().item(), rmin.abs().max().item())
@@ -307,10 +306,10 @@ def test_probe_kernel_matches_plain(cuda, variant, shape):
     from dcfa_yolo_tpu_torch.ops import cuda_stem_probe as csp
 
     x, w_f, bias = _probe_inputs(cuda, *shape)
-    before = csp.LAUNCHES[variant]
+    before = _build.launches()
     out = csp.stem_probe(variant, x, w_f, bias)
     torch.cuda.synchronize()
-    assert csp.LAUNCHES[variant] == before + 1
+    assert _build.launches(before)[f"stem_probe_{variant}"] == 1
     ref = csp.PLAIN[variant](x, w_f, bias)
     if variant == "pool":
         assert torch.equal(out, ref)
@@ -413,10 +412,10 @@ def test_graph_replay_equals_eager(cuda, serving_models, graph, b, topk, letterb
     eager1, eager2 = detect_batch(model, *x1, **kw), detect_batch(model, *x2, **kw)
     n0 = graph_count(model)
     held = detect_batch_graph(model, *x1, **kw)
-    before = (cuda_stem.LAUNCHES, cuda_nms.LAUNCHES)
+    before = _build.launches()
     second = detect_batch_graph(model, *x2, **kw)
     torch.cuda.synchronize()
-    assert (cuda_stem.LAUNCHES - before[0], cuda_nms.LAUNCHES - before[1]) == (2, 1)
+    assert _build.launches(before) == {"stem_eval": 2, "nms_suppress": 1}
     assert graph_count(model) == n0 + 1
     for got, want in ((held, eager1), (second, eager2)):
         for f in _GRAPH_FIELDS:
@@ -452,11 +451,11 @@ def test_failed_capture_raises(cuda, serving_models, monkeypatch):
     rgb, nir, hw = _serve_pairs(1, 5)
     kw = dict(conf_thres=0.25, iou_thres=0.45, nms="kernel", stem="kernel")
     n0 = pipeline.graph_count(model)
-    before = (cuda_stem.LAUNCHES, cuda_nms.LAUNCHES)
+    before = _build.launches()
     with pytest.raises(RuntimeError):
         pipeline.detect_batch_graph(model, rgb, nir, hw, **kw)
     assert pipeline.graph_count(model) == n0
-    assert (cuda_stem.LAUNCHES - before[0], cuda_nms.LAUNCHES - before[1]) == (2, 1)
+    assert _build.launches(before) == {"stem_eval": 2, "nms_suppress": 1}
 
 
 # ---------------------------------------------------------------------------
@@ -509,10 +508,10 @@ def test_reference_pth_served_through_the_graph(cuda, reference_pth):
     rgb8, nir8, _ = _serve_pairs(8, 22)
     pred.detect(rgb1[0], nir1[0])
     pred.detect_batch(rgb8, nir8)
-    before = (cuda_stem.LAUNCHES, cuda_nms.LAUNCHES)
+    before = _build.launches()
     dets = [pred.detect(rgb1[0], nir1[0])] + pred.detect_batch(rgb8, nir8)
     torch.cuda.synchronize()
-    assert (cuda_stem.LAUNCHES - before[0], cuda_nms.LAUNCHES - before[1]) == (4, 2)
+    assert _build.launches(before) == {"stem_eval": 4, "nms_suppress": 2}
     assert all(len(b) > 0 and np.isfinite(b).all() for b, _, _ in dets)
     bk, sk, ck = pipeline.predict(pred.model, rgb8, nir8, stem="kernel")
     kernel = pipeline.stem_eval
@@ -562,10 +561,10 @@ def test_variant_graph_replay_equals_eager(cuda, variant, input_shape):
     x1, x2 = _serve_pairs(2, 31), _serve_pairs(2, 32)
     eager1, eager2 = detect_batch(model, *x1, **kw), detect_batch(model, *x2, **kw)
     held = detect_batch_graph(model, *x1, **kw)
-    before = (cuda_stem.LAUNCHES, cuda_nms.LAUNCHES)
+    before = _build.launches()
     second = detect_batch_graph(model, *x2, **kw)
     torch.cuda.synchronize()
-    assert (cuda_stem.LAUNCHES - before[0], cuda_nms.LAUNCHES - before[1]) == (2, 1)
+    assert _build.launches(before) == {"stem_eval": 2, "nms_suppress": 1}
     assert graph_count(model) == 1
     for got, want in ((held, eager1), (second, eager2)):
         for f in _GRAPH_FIELDS:
@@ -596,10 +595,11 @@ def test_remat_step_launches_kernel_c_in_the_recompute(cuda):
             tr = Trainer(init_model(dataclasses.replace(cfg, remat=remat), 0, cuda, train=True),
                          TrainConfig(max_boxes=4), device=cuda)
             b = tr.put_batch(*dry_batch(4, (64, 64)))
-            before = cuda_stem_train.LAUNCHES
+            before = _build.launches()
             lb, g = tr.step_with_grad(b, 1e-2)
             torch.cuda.synchronize()
-            out.append((cuda_stem_train.LAUNCHES - before, lb.total, g, tr.flat_state.flat_stats))
+            out.append((_build.launches(before)["stem_train"], lb.total, g,
+                        tr.flat_state.flat_stats))
     finally:
         torch.backends.cudnn.deterministic = False
     (n0, l0, g0, s0), (n1, l1, g1, s1) = out

@@ -1,14 +1,18 @@
 """The port's flat optimizer and EMA tail (dcfa_yolo_tpu_torch/train/flat_opt.py)
-against the JAX package's `train/flat_opt.py`, and the trainer's flat tail
-against its per-tensor path, on the CPU.
+against the JAX package's `train/flat_opt.py`, and the trainer's tail
+against the optax chain and the JAX `update_ema`, on the CPU.
 
 Tolerances: one flat step against the JAX flat step to rtol 2e-6 / atol
 1e-7, as tests/test_flat_opt.py holds the JAX flat tail against optax (the
 same float32 formulas; the bias corrections' powers round in numpy here and
-in XLA there).  The flat-tail trainer against `flat_tail=False`: bit for bit
-(the same elementwise ops in the same order, and the clip's norm over the
-same per-parameter reductions).  The state round trip and resume: bit for
-bit.
+in XLA there).  The trainer's steps against optax and `update_ema` on its
+own flat gradients: rtol 1e-4 / atol 1e-5, as tests/test_flat_opt.py holds
+the JAX flat-tail trainer against its tree trainer (two programs that
+reduce in other orders: the clip's global norm over 2.4 M entries, which
+Adam's normalised step amplifies where a gradient nearly cancels its weight
+decay), here on the moves of the parameters and the EMA from the start,
+and on the optimizer state's flat vectors with the atol scaled to their
+largest entry.  The state round trip and resume: bit for bit.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+import optax
 from jax.flatten_util import ravel_pytree
 
 from dcfa_yolo_tpu.config import TrainConfig as JaxTrainConfig
@@ -129,11 +134,10 @@ def test_flat_ema_matches_jax():
 HW = (64, 64)
 
 
-def _trainer(flat_tail, opt="sgd"):
+def _trainer(opt="sgd"):
     cfg = ModelConfig(num_classes=1, phi="n", input_shape=HW, train_stem_backend="kernel")
     return Trainer(init_model(cfg, 0, "cpu", train=True),
-                   TrainConfig(max_boxes=8, optimizer_type=opt), device="cpu",
-                   flat_tail=flat_tail)
+                   TrainConfig(max_boxes=8, optimizer_type=opt), device="cpu")
 
 
 def _snapshot(tr):
@@ -159,23 +163,109 @@ def _assert_states_equal(a, b):
     assert a[4] == b[4]
 
 
+def _jax_paths(named):
+    """Each port parameter's path in the tree optax's masks read: the port
+    name's scopes, with a 4-D `weight` as `kernel` (decayed, as
+    `optim.py::decay_mask` takes it) and every other leaf by its own name."""
+    return [tuple(n.split(".")[:-1]) + (
+        "kernel" if n.endswith(".weight") and t.dim() == 4 else n.rsplit(".", 1)[-1],)
+        for n, t in named]
+
+
+def _tree_of(paths, arrays):
+    tree = {}
+    for path, a in zip(paths, arrays):
+        node = tree
+        for s in path[:-1]:
+            node = node.setdefault(s, {})
+        node[path[-1]] = jnp.asarray(a)
+    return tree
+
+
+def _leaf(tree, path):
+    for s in path:
+        tree = tree[s]
+    return np.asarray(tree)
+
+
+def _opt_slots(state):
+    """The optax chain's momentum trace, or Adam's mu and nu, by name."""
+    for s in jax.tree_util.tree_leaves(state, is_leaf=lambda x: hasattr(x, "_fields")):
+        if hasattr(s, "trace"):
+            return {"trace": s.trace}
+        if hasattr(s, "mu"):
+            return {"mu": s.mu, "nu": s.nu}
+    raise AssertionError(f"no optimizer slots in {state}")
+
+
+def _close(got, ref, what, atol=1e-5):
+    """The JAX package's limits for two trainers' states (tests/test_flat_opt.py:
+    rtol 1e-4, atol 1e-5)."""
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=atol, err_msg=what)
+
+
+# (learning rates, freeze phase) a step: three steps at lr 1e-2 with the
+# second frozen; five with a new lr each and the freeze toggled
+TAIL_RUNS = {"clip_freeze": ((1e-2,) * 3, (False, True, False)),
+             "new_lr": ((1e-2, 3e-3, 2.5e-2, 7e-4, 1.5e-2), (False, True, True, False, False))}
+
+
+@pytest.mark.parametrize("run", sorted(TAIL_RUNS))
 @pytest.mark.parametrize("opt", ["sgd", "adam"])
-def test_flat_tail_is_bit_equal_to_the_per_tensor_path(opt):
-    """Three full steps at 64² (the second in the freeze phase, clipping
-    active): losses, parameters, BN statistics, EMA and optimizer state
-    equal bit for bit."""
-    hb = synthetic_batch(2, HW, 8, 3)
-    flat, tree = _trainer(True, opt), _trainer(False, opt)
-    assert flat.flat_tail and not tree.flat_tail
-    for freeze in (False, True, False):
-        lf = flat.train_step(flat.put_batch(*hb), 1e-2, freeze_backbone=freeze)
-        lt = tree.train_step(tree.put_batch(*hb), 1e-2, freeze_backbone=freeze)
-        assert [float(t) for t in lf] == [float(t) for t in lt]
-    _assert_states_equal(_snapshot(flat), _snapshot(tree))
+def test_trainer_tail_matches_optax_and_jax_ema(opt, run):
+    """Whole steps of the trainer at 64²; each step's flat gradient
+    (`step_with_grad`) goes through the optax chain of `build_optimizer`
+    with the JAX trainer's freeze masking, and the new state through JAX's
+    `update_ema`: the trainer's parameters and EMA (as their moves from the
+    start) and its optimizer state equal theirs (`_close`)."""
+    from dcfa_yolo_tpu.train.ema import init_ema, update_ema
+    from dcfa_yolo_tpu.train.optim import build_optimizer, frozen_backbone_mask
+    from dcfa_yolo_tpu.train.trainer import _mask_frozen_opt_state
+
+    lrs, freezes = TAIL_RUNS[run]
+    tr = _trainer(opt)
+    clip = tr.tc.grad_clip_norm
+    layout = tr._p_layout
+    paths = _jax_paths(tr._named)
+    host = lambda vec: [v.numpy().copy() for v in layout.views(vec)]
+    params = start = _tree_of(paths, host(tr.flat_params))
+    tx = build_optimizer(JaxTrainConfig(optimizer_type=opt, grad_clip_norm=clip), params)
+    state = tx.init(params)
+    mask = frozen_backbone_mask(params)
+    ema_names = list(tr.ema.variables)
+    ema0 = {k: v.numpy().copy() for k, v in tr.ema.variables.items()}
+    ema = init_ema(ema0)
+    norms = []
+    for step, (lr, freeze) in enumerate(zip(lrs, freezes)):
+        _, g = tr.step_with_grad(tr.put_batch(*synthetic_batch(2, HW, 8, 30 + step)), lr,
+                                 freeze_backbone=freeze)
+        g = _tree_of(paths, host(g))
+        if freeze:
+            g = jax.tree_util.tree_map(lambda x, m: jnp.zeros_like(x) if m else x, g, mask)
+        norms.append(float(optax.global_norm(g)))
+        upd, state = tx.update(g, state, params)
+        if freeze:
+            upd = jax.tree_util.tree_map(lambda u, m: jnp.zeros_like(u) if m else u, upd, mask)
+            state = _mask_frozen_opt_state(tx, state, mask)
+        params = jax.tree_util.tree_map(lambda p, u: p + u * lr, params, upd)
+        live = dict(zip(layout.names, (_leaf(params, p) for p in paths)))
+        live.update({k: v.numpy() for k, v in tr.state.batch_stats.items()})
+        ema = update_ema(ema, {k: live[k] for k in ema_names}, tr.tc.ema_decay, tr.tc.ema_tau)
+    assert min(norms) > clip  # the clip scaled every step
+    got = tr.state
+    for name, path in zip(layout.names, paths):
+        p0 = _leaf(start, path)
+        _close(got.params[name].numpy() - p0, _leaf(params, path) - p0, name)
+    for k, v in _opt_slots(state).items():  # Adam's nu lives near 1e-11: atol to scale
+        ref = np.concatenate([_leaf(v, p).ravel() for p in paths])
+        _close(getattr(tr.optimizer.opt, k).numpy(), ref, k, 1e-5 * np.abs(ref).max())
+    assert tr.ema.updates == int(ema.updates) == len(lrs)
+    for k in ema_names:
+        _close(got.ema[k].numpy() - ema0[k], np.asarray(ema.variables[k]) - ema0[k], k)
 
 
 def test_parameters_are_views_of_the_flat_vector():
-    tr = _trainer(True)
+    tr = _trainer()
     flat = tr.flat_params
     for (name, p), v in zip(tr._named, flat_opt.FlatLayout(tr._named).views(flat)):
         assert p.data_ptr() == v.data_ptr(), name
@@ -189,7 +279,7 @@ def test_state_roundtrip_and_exact_resume():
     trainer restored from a saved state continues bit for bit as the
     uninterrupted one."""
     hb = synthetic_batch(2, HW, 8, 4)
-    straight = _trainer(True)
+    straight = _trainer()
     b = straight.put_batch(*hb)
     straight.train_step(b, 1e-2)
     before = _snapshot(straight)
@@ -202,7 +292,7 @@ def test_state_roundtrip_and_exact_resume():
     buf = io.BytesIO()
     torch.save(straight.state._asdict(), buf)
     buf.seek(0)
-    resumed = _trainer(True)
+    resumed = _trainer()
     resumed.state = TrainState(**torch.load(buf, weights_only=True))
     _assert_states_equal(_snapshot(resumed), before)
     la = straight.train_step(b, 1e-2)

@@ -24,7 +24,7 @@ import jax.numpy as jnp
 from dcfa_yolo_tpu.ops.nms import _greedy_suppress, batched_nms as jax_batched_nms
 from dcfa_yolo_tpu.ops.boxes import pairwise_iou_xyxy
 from dcfa_yolo_tpu.ops.pallas_nms import pallas_greedy_suppress
-from dcfa_yolo_tpu_torch.ops import cuda_nms
+from dcfa_yolo_tpu_torch.ops import _build, cuda_nms
 from dcfa_yolo_tpu_torch.ops.nms import batched_nms, resolve_nms
 
 torch.set_num_threads(1)
@@ -69,10 +69,10 @@ def test_greedy_suppress_plain_exact(b, k):
             jnp.asarray(boxes), jnp.asarray(alive), thr, interpret=True)) & alive
         ref_xla = np.asarray(_xla_keep(jnp.asarray(boxes), jnp.asarray(alive), thr))
         np.testing.assert_array_equal(ref_pallas, ref_xla)
-        before = cuda_nms.LAUNCHES
+        before = _build.launches()
         keep = cuda_nms.greedy_suppress(torch.from_numpy(boxes),
                                         torch.from_numpy(alive), thr).numpy()
-        assert cuda_nms.LAUNCHES == before  # CPU tensors never launch
+        assert _build.launches(before)["nms_suppress"] == 0  # CPU tensors never launch
         np.testing.assert_array_equal(keep, ref_xla)
 
 
@@ -219,10 +219,10 @@ def test_nms_auto_needs_sm90(monkeypatch, cap, route):
     if route == "plain":
         boxes = torch.zeros((1, 8, 4)).as_subclass(_OnCard)
         alive = torch.ones((1, 8), dtype=torch.bool).as_subclass(_OnCard)
-        before = cuda_nms.LAUNCHES
+        before = _build.launches()
         with pytest.raises(ValueError, match="sm_90"):
             cuda_nms.greedy_suppress(boxes, alive, 0.5)
-        assert cuda_nms.LAUNCHES == before
+        assert _build.launches(before)["nms_suppress"] == 0
 
 
 def test_greedy_suppress_takes_any_k_on_the_cpu():

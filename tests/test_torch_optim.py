@@ -1,6 +1,7 @@
 """The port's optimizer, schedule, EMA and weight init
-(dcfa_yolo_tpu_torch/train/optim.py, schedule.py, ema.py, init_weights.py)
-against the reference goldens and the JAX package, on the CPU.
+(dcfa_yolo_tpu_torch/train/flat_opt.py over optim.py's parameter groups,
+schedule.py, ema.py's ramp, init_weights.py) against the reference goldens
+and the JAX package, on the CPU.
 
 Tolerances: the LR schedules to rtol 1e-10 (pure Python on both sides, as
 tests/test_train.py holds them); one optimizer step to rtol 1e-6 (the same
@@ -29,8 +30,8 @@ from dcfa_yolo_tpu.train.optim import build_optimizer
 from dcfa_yolo_tpu_torch.config import ModelConfig, TrainConfig
 from dcfa_yolo_tpu_torch.models.convert import from_jax_variables
 from dcfa_yolo_tpu_torch.models.yolo import init_model
-from dcfa_yolo_tpu_torch.train.ema import ModelEMA
-from dcfa_yolo_tpu_torch.train.optim import Optimizer
+from dcfa_yolo_tpu_torch.train.flat_opt import (FlatEMA, FlatLayout, FlatOptimizer,
+                                                flatten_into)
 from dcfa_yolo_tpu_torch.train.schedule import get_lr_scheduler
 
 torch.set_num_threads(1)
@@ -86,9 +87,10 @@ def _port_named(tree):
 @pytest.mark.parametrize("opt,freeze", [("sgd", False), ("adam", False),
                                         ("sgd", True)])
 def test_optimizer_steps_match_optax(opt, freeze):
-    """Three steps with clipping active (gradient norm above 10), against
-    the optax chain of `build_optimizer` plus the JAX trainer's freeze
-    masking (`trainer.py:94-105`)."""
+    """`FlatOptimizer` over the tree's parameters (views of its flat
+    vector), three steps with clipping active (gradient norm above 10),
+    against the optax chain of `build_optimizer` plus the JAX trainer's
+    freeze masking (`trainer.py:94-105`)."""
     from dcfa_yolo_tpu.train.optim import frozen_backbone_mask
     from dcfa_yolo_tpu.train.trainer import _mask_frozen_opt_state
 
@@ -100,7 +102,8 @@ def test_optimizer_steps_match_optax(opt, freeze):
     state = tx.init(params)
     mask = frozen_backbone_mask(params)
     named = _port_named(tree)
-    port = Optimizer(TrainConfig(**cfg_kw), named)
+    port = FlatOptimizer(TrainConfig(**cfg_kw), named, flatten_into(named))
+    layout = FlatLayout(named)
     lr = 1e-2
     for step in range(3):
         g_tree = jax.tree_util.tree_map(
@@ -115,7 +118,8 @@ def test_optimizer_steps_match_optax(opt, freeze):
                                          upd, mask)
             state = _mask_frozen_opt_state(tx, state, mask)
         params = jax.tree_util.tree_map(lambda p, u: p + u * lr, params, upd)
-        port.step([t for _, t in _port_named(g_tree)], lr, freeze_backbone=freeze)
+        port.step(layout.ravel([t for _, t in _port_named(g_tree)]), lr,
+                  freeze_backbone=freeze)
     for (name, p), ref in zip(named, _port_named(jax.tree_util.tree_map(np.asarray, params))):
         np.testing.assert_allclose(p.numpy(), ref[1].numpy(), rtol=1e-6, atol=1e-7,
                                    err_msg=name)
@@ -125,10 +129,16 @@ def test_optimizer_steps_match_optax(opt, freeze):
 
 
 def test_ema_matches_jax():
+    """`FlatEMA` over a model's parameter and float statistics vectors
+    (the model's tensors are views of them), three updates from 5, against
+    the JAX `update_ema`."""
     rng = np.random.default_rng(6)
     model = torch.nn.Sequential(torch.nn.Conv2d(3, 4, 3), torch.nn.BatchNorm2d(4))
     sd0 = {k: v.clone() for k, v in model.state_dict().items() if v.is_floating_point()}
-    ema = ModelEMA(model, updates=5)
+    params = list(model.named_parameters())
+    stats = [(k, v) for k, v in model.named_buffers() if v.is_floating_point()]
+    ema = FlatEMA(list(sd0), (FlatLayout(params), flatten_into(params)),
+                  (FlatLayout(stats), flatten_into(stats)), updates=5)
     ref = init_ema({k: v.numpy() for k, v in sd0.items()}, 5)
     for _ in range(3):
         with torch.no_grad():

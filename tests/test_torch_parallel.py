@@ -244,8 +244,9 @@ def _assert_trees(a, b, rtol=1e-5, atol=1e-7):
 
 @pytest.mark.parametrize("which", ["fused", "fused_flat"])
 def test_fused_check_matches_jax_on_two_devices(ranks, inputs, which):
-    """The port's fused step over 2 ranks (per-tensor and flat tail) against
-    the JAX `run_fused` / `run_fused_flat` on a 2-device mesh."""
+    """The port's fused step over 2 ranks (its one optimizer tail) against
+    the JAX `run_fused` (optax chain) and `run_fused_flat` (flat tail) on a
+    2-device mesh."""
     jmodel, jvars, jbatch = jax_check.setup()
     ref_state, ref_loss = (jax_check.run_fused if which == "fused"
                            else jax_check.run_fused_flat)(jmodel, jvars, jbatch, n_dev=2)
@@ -254,7 +255,7 @@ def test_fused_check_matches_jax_on_two_devices(ranks, inputs, which):
                               "batch_stats": ref_state.batch_stats if which == "fused"
                               else ref_state["batch_stats"]})
     for r in ranks:
-        state, loss = r["check"][which]
+        state, loss = r["check"]["fused"]
         np.testing.assert_allclose(loss, ref_loss, rtol=1e-6)
         got = {**state["params"], **state["batch_stats"]}
         _assert_trees(got, {k: v.numpy() for k, v in ref.items()})
@@ -269,19 +270,21 @@ def test_fused_check_bn_moments_are_global(ranks, inputs):
     mean, var = fused_check.global_moments(model, inputs["tiny_batch"])
     half, _ = fused_check.global_moments(model, tuple(x[:4] for x in inputs["tiny_batch"]))
     for r in ranks:
-        stats = r["check"]["fused_flat"][0]["batch_stats"]
+        stats = r["check"]["fused"][0]["batch_stats"]
         np.testing.assert_allclose(stats["bn.running_mean"], 0.1 * mean, rtol=1e-5, atol=1e-6)
         np.testing.assert_allclose(stats["bn.running_var"], 0.9 + 0.1 * var * 8 / 7,
                                    rtol=1e-5, atol=1e-6)
         assert not np.allclose(0.1 * half, stats["bn.running_mean"], rtol=1e-3, atol=1e-5)
 
 
-@pytest.mark.parametrize("which", ["fused", "fused_flat"])
+@pytest.mark.parametrize("which", ["fused", "dup_fused"])
 def test_fused_check_two_ranks_equal_one(ranks, inputs, which):
+    """The fused step over 2 ranks equals one process's step on the whole
+    batch: the global batch, and `dup` (equal per-rank slices)."""
     model, _ = fused_check.setup()
     model.load_state_dict({k: torch.from_numpy(v) for k, v in _tiny_sd(inputs).items()})
-    run = fused_check.run_fused if which == "fused" else fused_check.run_fused_flat
-    one_state, one_loss = run(model, inputs["tiny_batch"])
+    batch = inputs["tiny_batch"] if which == "fused" else inputs["dup"]
+    one_state, one_loss = fused_check.run_fused(model, batch)
     for r in ranks:
         state, loss = r["check"][which]
         np.testing.assert_allclose(loss, one_loss, rtol=1e-6)

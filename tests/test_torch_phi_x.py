@@ -197,7 +197,7 @@ def step_readings(precision="float32"):
     ref = ref_step(sd, batch)
     if precision == "float32":
         tr = Trainer(_port_model(sd), TrainConfig(batch_size=2), device="cpu")
-        assert tr.flat_tail and not tr.graph_route
+        assert not tr.graph_route
         got = port_step(tr, batch)
     else:
         got = ref_step(sd, batch, precision)

@@ -36,7 +36,7 @@ import jax.numpy as jnp
 import tools.stem_split_probe as jprobe
 from dcfa_yolo_tpu.ops.pallas_stem import fold_stem_params_d
 from dcfa_yolo_tpu.ops.resize import deinterleave_cols_cf
-from dcfa_yolo_tpu_torch.ops import cuda_stem, cuda_stem_probe as csp, stem_core
+from dcfa_yolo_tpu_torch.ops import _build, cuda_stem_probe as csp, stem_core
 from dcfa_yolo_tpu_torch.ops.cuda_stem import fold_stem_params
 from dcfa_yolo_tpu_torch.tools import stem_split_probe as probe
 
@@ -250,11 +250,11 @@ def test_pool_kernel_mirror_matches_pool_plain(shape):
 
 @pytest.mark.parametrize("variant", csp.VARIANTS)
 def test_wrappers_take_plain_versions_on_cpu(port_inputs, variant):
-    before = (dict(csp.LAUNCHES), cuda_stem.LAUNCHES)
+    before = _build.launches()
     out = csp.stem_probe(variant, *port_inputs)
     assert out.shape == (B, S // 2, S // 2, 16) and out.dtype == torch.bfloat16
     assert torch.equal(out, csp.PLAIN[variant](*port_inputs))
-    assert (dict(csp.LAUNCHES), cuda_stem.LAUNCHES) == before
+    assert not _build.launches(before)
     with pytest.raises(ValueError):
         csp.stem_probe(variant, port_inputs[0][:, :, 1:], *port_inputs[1:])
 
@@ -314,7 +314,7 @@ def test_stem_probe_needs_sm90(monkeypatch, port_inputs, variant, cap):
 
     monkeypatch.setattr(csp._build, "load_library", load)
     on_card = [t.as_subclass(_OnCard) for t in port_inputs]
-    before = dict(csp.LAUNCHES)
+    before = _build.launches()
     if cap == (9, 0):
         with pytest.raises(_Loaded):
             csp.stem_probe(variant, *on_card)
@@ -323,7 +323,7 @@ def test_stem_probe_needs_sm90(monkeypatch, port_inputs, variant, cap):
         with pytest.raises(ValueError, match="sm_90"):
             csp.stem_probe(variant, *on_card)
         assert loads == [] and csp._READY == set()
-    assert csp.LAUNCHES == before
+    assert not _build.launches(before)
 
 
 @pytest.mark.parametrize("cap", [(9, 0), (8, 0)])

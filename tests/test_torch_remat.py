@@ -153,7 +153,7 @@ def test_without_the_guard_the_recompute_moves_them_again(passes):
     assert torch.equal(bad[neck], plain[neck])
 
 
-def test_train_step_on_the_flat_tail_matches_no_remat():
+def test_train_step_on_the_flat_vectors_matches_no_remat():
     batch = dryrun.dry_batch(B, HW, seed=4)
     out = []
     for cfg in (CFG, REMAT):

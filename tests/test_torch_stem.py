@@ -22,7 +22,7 @@ from dcfa_yolo_tpu.ops.pallas_stem import (fold_stem_params,
                                            fold_stem_params_e, pallas_stem,
                                            pallas_stem_e)
 from dcfa_yolo_tpu.ops.resize import deinterleave_cols_cf
-from dcfa_yolo_tpu_torch.ops import cuda_stem
+from dcfa_yolo_tpu_torch.ops import _build, cuda_stem
 
 torch.set_num_threads(1)
 
@@ -83,9 +83,9 @@ def test_stem_plain_matches_pallas_e(shape):
     ref = np.asarray(jnp.transpose(ref, (0, 1, 3, 2)), np.float32)  # NHWC
 
     w, bias = _port_fold(params)
-    before = cuda_stem.LAUNCHES
+    before = _build.launches()
     out = cuda_stem.stem_eval(torch.from_numpy(x_cf).to(torch.bfloat16), w, bias)
-    assert cuda_stem.LAUNCHES == before  # CPU tensors never launch the kernel
+    assert _build.launches(before)["stem_eval"] == 0  # CPU tensors never launch the kernel
     assert out.shape == (shape[0], shape[1] // 2, shape[2] // 2, 16)
     assert out.dtype == torch.bfloat16
     _check_v4_class(out.float().numpy(), ref)

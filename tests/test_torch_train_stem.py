@@ -25,7 +25,7 @@ from dcfa_yolo_tpu.models.blocks import ConvMaxpool as JaxConvMaxpool
 from dcfa_yolo_tpu.ops.pallas_stem_train import (_reference_stem,
                                                  fused_train_stem as jax_fused)
 from dcfa_yolo_tpu_torch.models.blocks import ConvMaxpool
-from dcfa_yolo_tpu_torch.ops import cuda_stem_train
+from dcfa_yolo_tpu_torch.ops import _build, cuda_stem_train
 from dcfa_yolo_tpu_torch.ops.cuda_stem_train import (fused_train_stem,
                                                      reference_stem,
                                                      stem_train,
@@ -170,9 +170,9 @@ def test_module_matches_jax_pallas_module(backend):
         pm.bn.bias.copy_(torch.from_numpy(beta))
         pm.bn.running_mean.fill_(0.1)
         pm.bn.running_var.fill_(0.9)
-    before = cuda_stem_train.LAUNCHES
+    before = _build.launches()
     y = pm(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-    assert cuda_stem_train.LAUNCHES == before  # CPU tensors: the plain version
+    assert _build.launches(before)["stem_train"] == 0  # CPU tensors: the plain version
     np.testing.assert_allclose(y.detach().numpy(), np.asarray(y_j), atol=1e-5)
     np.testing.assert_allclose(pm.bn.running_mean.numpy(),
                                np.asarray(st_j["batch_stats"]["bn"]["mean"]),

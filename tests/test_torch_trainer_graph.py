@@ -1,13 +1,14 @@
 """The captured train step (`train/trainer.py`, `capture="auto"`).
 
-On the CPU: which route a trainer takes, the step counts it keeps, and the
+On the CPU: which route a trainer takes, the step counts it keeps, the
 flat tail's per-step values as device scalars (`train/flat_opt.py`:
 `advance` writes them, `apply` reads them) against the Python-float
-arithmetic they replace.  On the card (marked `cuda`, skipped here): the
-replayed step against the eager one from the same state, `torch.equal`
+arithmetic they replace, and the launch registry a capture holds its
+launches in (`ops/_build.py`).  On the card (marked `cuda`, skipped here):
+the replayed step against the eager one from the same state, `torch.equal`
 under deterministic cuDNN, with kernel C in the stem (phi n, 16 stem
-channels) and without it (phi s, 32).  The file imports no JAX; on the
-card run it with
+channels) and without it (phi s, 32), and a captured step's launches
+against an eager step's.  The file imports no JAX; on the card run it with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_trainer_graph.py -q
 """
@@ -20,6 +21,7 @@ import torch
 
 from dcfa_yolo_tpu_torch.config import ModelConfig, TrainConfig
 from dcfa_yolo_tpu_torch.models.yolo import init_model
+from dcfa_yolo_tpu_torch.ops import _build
 from dcfa_yolo_tpu_torch.profile_train import synthetic_batch
 from dcfa_yolo_tpu_torch.train import flat_opt
 from dcfa_yolo_tpu_torch.train.trainer import WARMUP_STEPS, Trainer, graph_route
@@ -54,11 +56,10 @@ def _differ(a, b):
 # -- CPU --------------------------------------------------------------------
 def test_route_is_chosen_from_the_device_the_group_and_the_tail():
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    assert graph_route("auto", cuda, None, True)
-    assert not graph_route("off", cuda, None, True)
-    assert not graph_route("auto", cpu, None, True)
-    assert not graph_route("auto", cuda, object(), True)
-    assert not graph_route("auto", cuda, None, False)
+    assert graph_route("auto", cuda, None)
+    assert not graph_route("off", cuda, None)
+    assert not graph_route("auto", cpu, None)
+    assert not graph_route("auto", cuda, object())
     with pytest.raises(ValueError):
         _trainer("cpu", capture="always")
 
@@ -120,19 +121,41 @@ def test_device_scalars_equal_the_python_float_tail(opt):
         assert torch.equal(dev_opt.opt.trace, opt_ref.trace)
 
 
-@pytest.mark.parametrize("opt", ["sgd", "adam"])
-def test_device_scalar_trainer_equals_the_per_tensor_path(opt):
-    """Five whole steps at 64², the learning rate changed every step and
-    the freeze phase toggled: the flat tail (device scalars) against the
-    per-tensor tail (Python floats), losses and every state entry equal."""
-    flat, tree = _trainer("cpu", opt=opt), _trainer("cpu", opt=opt, flat_tail=False)
-    for step, (lr, freeze) in enumerate(zip(LRS, FREEZE)):
-        hb = synthetic_batch(2, HW, 8, 10 + step)
-        lf = flat.train_step(flat.put_batch(*hb), lr, freeze_backbone=freeze)
-        lt = tree.train_step(tree.put_batch(*hb), lr, freeze_backbone=freeze)
-        assert [float(t) for t in lf] == [float(t) for t in lt], step
-    assert not _differ(_state(flat), _state(tree))
-    assert flat.ema.updates == tree.ema.updates == len(LRS)
+def test_a_hold_hands_back_its_launches_and_adding_them_restores_the_total():
+    """Launches counted inside `held_launches` are taken out of the counts
+    and handed back by name; adding them (a replay) counts them again."""
+    start = _build.launches()
+    _build.check(0, "outside", "stem_eval")
+    with _build.held_launches() as held:
+        _build.check(0, "captured", "stem_train", "stem_train_f32")
+        _build.check(0, "captured", "bn_train")
+        _build.check(0, "captured", "bn_train")
+        assert _build.launches(start) == {"stem_eval": 1, "stem_train": 1,
+                                          "stem_train_f32": 1, "bn_train": 2}
+    assert held == {"stem_train": 1, "stem_train_f32": 1, "bn_train": 2}
+    assert _build.launches(start) == {"stem_eval": 1}
+    for replays in (1, 2):
+        _build.add_launches(held)
+        assert _build.launches(start) == {"stem_eval": 1, "stem_train": replays,
+                                          "stem_train_f32": replays, "bn_train": 2 * replays}
+    assert _build.launches(start)["nms_suppress"] == 0  # a name never counted reads 0
+
+
+def test_a_failed_launch_counts_nothing_and_a_failed_capture_restores_the_counts():
+    start = _build.launches()
+    with pytest.raises(RuntimeError, match="captured"):
+        with _build.held_launches() as held:
+            _build.check(0, "captured", "bn_train")
+            raise RuntimeError("captured step failed")
+    assert held == {"bn_train": 1} and not _build.launches(start)
+    lib = _build._LIB
+    _build._LIB = type("Lib", (), {"dcfa_error_string": staticmethod(lambda rc: b"boom")})
+    try:
+        with pytest.raises(RuntimeError, match="CUDA error 7"):
+            _build.check(7, "stem_eval", "stem_eval")
+    finally:
+        _build._LIB = lib
+    assert not _build.launches(start)
 
 
 # -- the card ---------------------------------------------------------------
@@ -165,8 +188,6 @@ def _run(tr, batches, lrs, freezes):
 @pytest.mark.parametrize("phi,dtype,launches", [("n", "bfloat16", 2), ("n", "float32", 2),
                                                 ("s", "bfloat16", 0)])
 def test_replayed_steps_equal_eager_steps(cuda, phi, dtype, launches):
-    from dcfa_yolo_tpu_torch.ops import cuda_stem_train
-
     eager = _trainer(cuda, phi, dtype=dtype, capture="off")
     graph = _trainer(cuda, phi, dtype=dtype)
     assert graph.graph_route and not eager.graph_route
@@ -174,16 +195,42 @@ def test_replayed_steps_equal_eager_steps(cuda, phi, dtype, launches):
     batches = _batches(graph, len(LRS))
     want = _run(eager, batches, LRS, [False] * len(LRS))
     torch.cuda.synchronize()
-    before = cuda_stem_train.LAUNCHES
+    before = _build.launches()
     got = _run(graph, batches, LRS, [False] * len(LRS))
     torch.cuda.synchronize()
-    assert cuda_stem_train.LAUNCHES - before == launches * len(LRS)
+    assert _build.launches(before)["stem_train"] == launches * len(LRS)
     assert graph.graph_stats() == {"captures": 1, "replays": len(LRS) - WARMUP_STEPS,
                                    "eager": WARMUP_STEPS}
     for step, (a, b) in enumerate(zip(got, want)):
         assert torch.equal(a, b), step
     assert not _differ(_state(graph), _state(eager))
     assert graph.ema.updates == eager.ema.updates == len(LRS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phi,dtype", [("n", "bfloat16"), ("n", "float32"), ("s", "bfloat16")])
+def test_a_captured_step_holds_what_an_eager_step_launches(cuda, phi, dtype):
+    """The launches a capture holds equal an eager step's, name by name
+    (kernel C in both dtypes at phi n, kernel D at every phi); the capture
+    itself counts nothing, and each replay adds them."""
+    tr = _trainer(cuda, phi, dtype=dtype)
+    b = _batches(tr, 1)[0]
+    for _ in range(WARMUP_STEPS - 1):
+        tr.train_step(b, 1e-2)
+    before = _build.launches()
+    tr.train_step(b, 1e-2)  # the last eager step of the warm-up
+    eager = _build.launches(before)
+    assert eager["bn_train"] > 0 and eager["bn_train"] % 6 == 0
+    assert eager["stem_train"] == (2 if phi == "n" else 0)
+    assert eager["stem_train_f32"] == (2 if (phi, dtype) == ("n", "float32") else 0)
+    before = _build.launches()
+    tr.train_step(b, 1e-2)  # the capture, then its first replay
+    assert tr.graph_stats() == {"captures": 1, "replays": 1, "eager": WARMUP_STEPS}
+    assert dict(tr._graph.launches) == dict(eager)
+    assert _build.launches(before) == eager
+    for _ in range(2):
+        tr.train_step(b, 1e-2)
+    assert _build.launches(before) == {k: 3 * n for k, n in eager.items()}
 
 
 @pytest.mark.cuda
