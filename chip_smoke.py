@@ -514,7 +514,12 @@ def phase_train_stem(dev, dtype=torch.bfloat16):
     bf16: pools in the v4 class, sums within 1e-3 relative.  float32 (TF32
     off): pools within 1e-5 of max|ĉ| plus 1e-5 relative, sums within 1e-4
     relative, y within 1e-4 of max|y| and the moments at rtol 1e-4; only
-    summation orders differ."""
+    summation orders differ.  Then C's backward (`stem_grad`, as the main
+    path calls it: dkernel, dγ, dβ, no dx) against its plain twin at the
+    same input from the kernel's moments: float32 within 1e-4 of each
+    gradient's largest entry, bf16 at cosine ≥ 0.999; two launches
+    `torch.equal`; timed on the device alone (`graph_ms`) beside its bound
+    and the twin."""
     import torch.nn.functional as F
     from dcfa_yolo_tpu_torch.ops import cuda_stem_train as cst
     from dcfa_yolo_tpu_torch.utils.profiling import (H100_BF16_FLOPS, H100_FP32_FLOPS,
@@ -582,6 +587,7 @@ def phase_train_stem(dev, dtype=torch.bfloat16):
              ms=device_ms(lambda: cst.stem_train(x, k), 20),
              plain_ms=device_ms(lambda: cst.stem_train_plain(x, k), 5),
              library_ms=device_ms(library, 20), bound_ms=bound_ms, bound_by=bound_by)
+    t["grad"] = train_stem_grad(x, k32, gamma, beta, sums, rng, tag)
     print(f"{tag} b{b} 640² {str(dtype)[6:]}: pmax bit-equal {res['pmax'][1]:.6f}, pmin "
           f"{res['pmin'][1]:.6f}, max_abs_err {t['max_abs_err']:.4g} (max|ĉ| {c_max:.4g}), "
           f"sums rel err {sum_err:.3g} (tol {sum_tol:g}) | fused y vs reference: "
@@ -590,6 +596,63 @@ def phase_train_stem(dev, dtype=torch.bfloat16):
           f"conv+max/min pools+sums) {t['library_ms']:.4f} bound_ms {bound_ms:.5f} "
           f"({bound_by}, {nbytes / 1e6:.1f} MB) | {multiples(t)}; sums bit-equal over two "
           f"launches")
+    return t
+
+
+def train_stem_grad(x, k32, gamma, beta, sums, rng, tag):
+    """C's backward at `phase_train_stem`'s input: checks, times and prints
+    (`phase_train_stem`); returns its row of the kernels line."""
+    from dcfa_yolo_tpu_torch.ops import cuda_stem_train as cst
+    from dcfa_yolo_tpu_torch.utils.profiling import (H100_BF16_FLOPS, H100_FP32_FLOPS,
+                                                     bound, device_ms)
+
+    b, h, w, _ = x.shape
+    f32 = x.dtype == torch.float32
+    gy = torch.from_numpy(rng.standard_normal((b, h // 2, w // 2, 16)).astype(np.float32))
+    gy = gy.to(x.device, x.dtype)
+    z = torch.zeros(16, device=x.device)
+    mean, mean2 = sums[:, 0] / (b * h * w), sums[:, 1] / (b * h * w)
+    need = (False, True, True, True)
+    route = torch.empty(gy.shape, dtype=torch.uint8, device=x.device)
+    kernel = lambda: cst.stem_grad(x, k32, gamma, beta, mean, mean2, gy, z, z, 1e-5, needs=need,
+                                   route=route)
+    plain = lambda: cst.stem_grad_plain(x, k32, gamma, beta, mean, mean2, gy, z, z, 1e-5,
+                                        needs=need)
+    got, again = kernel(), kernel()
+    check(all(torch.equal(a, b_) for a, b_ in zip(got[1:], again[1:])),
+          f"{tag} backward: two launches differ")
+    # the routing against the twin's own; the arithmetic against the twin
+    # routed as the kernel routed (in float32 a few windows in millions sit
+    # at near-ties of r that the kernel's conv and cuDNN's round apart)
+    same = (route == cst.route_plain(x, k32, gamma, beta, mean, mean2, 1e-5)).float().mean()
+    same = same.item()
+    twin = cst.stem_grad_plain(x, k32, gamma, beta, mean, mean2, gy, z, z, 1e-5, needs=need,
+                               route=route)
+    err = {}
+    for name, g, r in zip(("dkernel", "dgamma", "dbeta"), got[1:], twin[1:]):
+        g, r = g.double().flatten(), r.double().flatten()
+        err[name] = (float((g - r).abs().max() / r.abs().max()),
+                     float(torch.nn.functional.cosine_similarity(g, r, 0)))
+    bad = [n for n, (rel, cos) in err.items() if not (rel <= 1e-4 if f32 else cos >= 0.999)]
+    check(same >= 0.999 and not bad, f"{tag} backward against stem_grad_plain: routes "
+          f"{same:.7f} equal (need 0.999), {bad} outside ({err})")
+    # what the function must move: x and gy read once, the weights, dW and
+    # the four (16,) vectors; the conv and dW, two conv-sized products
+    es = x.element_size()
+    nbytes = (x.numel() + gy.numel()) * es + 16 * 27 * (es + 4) + 4 * 16 * 4
+    bound_ms, bound_by = bound(nbytes, 2 * 2 * b * h * w * 16 * 27,
+                               H100_FP32_FLOPS if f32 else H100_BF16_FLOPS)
+    t = dict(max_abs_err=max(float((g.double() - r.double()).abs().max())
+                             for g, r in zip(got[1:], twin[1:])),
+             ms=graph_ms(kernel, 20), plain_ms=device_ms(plain, 3), library_ms=None,
+             bound_ms=bound_ms, bound_by=bound_by)
+    print(f"{tag} backward b{b} {h}²: routes {same:.7f} equal to stem_grad_plain's; "
+          "against it given the kernel's routes " + ", ".join(
+        f"{n} rel {rel:.3g} cos {cos:.8f}" for n, (rel, cos) in err.items())
+          + f"; two launches torch.equal | kernel_ms {t['ms']:.4f} (two launches, device "
+          f"only) plain_ms {t['plain_ms']:.3f} bound_ms {bound_ms:.5f} ({bound_by}, "
+          f"{nbytes / 1e6:.1f} MB) | {t['ms'] / bound_ms:.2f}x bound | {CARD}")
+    check(bound_ms <= t["ms"], f"{tag} backward: a time under its bound")
     return t
 
 
@@ -755,7 +818,7 @@ def phase_train(dev):
     with `allow_bf16_reduced_precision_reduction`.  Kernel D's launches
     over the 6 steps are six for each train-mode BN call (three forward,
     three backward; the calls counted on the first, eager step).  Returns
-    kernels C's and D's launches by entry."""
+    kernels C's (and its backward's) and D's launches by entry."""
     from dcfa_yolo_tpu_torch.config import ModelConfig, TrainConfig
     from dcfa_yolo_tpu_torch.models.yolo import init_model
     from dcfa_yolo_tpu_torch.ops import _build
@@ -793,7 +856,8 @@ def phase_train(dev):
                 h.remove()
     torch.cuda.synchronize()
     n = _build.launches(before)
-    launches = {k: n[k] for k in ("stem_eval", "nms_suppress", "stem_train", "bn_train")}
+    launches = {k: n[k] for k in ("stem_eval", "nms_suppress", "stem_train", "stem_grad",
+                                  "bn_train")}
     med = float(np.median(step_ms))
     print(f"[train] b{b} 640² bf16 SGD lr {lr:g}, {steps} steps on one batch: launches "
           f"{launches}, loss {losses[0]:.4f} -> {losses[-1]:.4f}")
@@ -801,6 +865,11 @@ def phase_train(dev):
           f"steps {', '.join(f'{t:.1f}' for t in step_ms)}), images/s {b * 1e3 / med:.1f}")
     check(launches["stem_train"] == 2 * steps,
           f"expected {2 * steps} train-stem launches, got {launches}")
+    print(f"[train] kernel C's backward: {launches['stem_grad']} launches over the {steps} "
+          f"steps (two a stem a step: the sums, then dkernel)")
+    check(launches["stem_grad"] == 2 * launches["stem_train"],
+          f"expected two backward launches for each of the {launches['stem_train']} "
+          f"train-stem launches, got {launches['stem_grad']}")
     print(f"[train] kernel D: {n_bn} train-mode BN calls a step, {launches['bn_train']} "
           f"launches over the {steps} steps (graph stats {tr.graph_stats()})")
     check(n_bn > 0 and launches["bn_train"] == 6 * n_bn * steps,
@@ -830,7 +899,10 @@ def phase_train(dev):
     n = _build.launches(before)
     launches["stem_train"] += n["stem_train"] - n["stem_train_f32"]
     launches["stem_train_f32"] = n["stem_train_f32"]
-    check(launches["stem_train_f32"] == 2 and launches["stem_train"] == 2 * steps + 2,
+    launches["stem_grad"] += n["stem_grad"] - n["stem_grad_f32"]
+    launches["stem_grad_f32"] = n["stem_grad_f32"]
+    check(launches["stem_train_f32"] == 2 and launches["stem_train"] == 2 * steps + 2
+          and launches["stem_grad_f32"] == 4 and launches["stem_grad"] == 4 * steps + 4,
           f"kernel C launches in the one-step comparisons: {launches}")
     report_one_step_runs(*runs)
     return launches
@@ -3042,8 +3114,8 @@ def main() -> int:
         train_stem_f32_t = phase_train_stem(dev, torch.float32)
         bn_t = phase_bn_train(dev)
         train_n = phase_train(dev)
-        launches["stem_train"] = train_n["stem_train"]
-        launches["bn_train"] = train_n["bn_train"]
+        for name in ("stem_train", "stem_grad", "stem_grad_f32", "bn_train"):
+            launches[name] = train_n[name]
         for name, n in phase_train_graph(dev).items():
             launches[name] += n
         remat_n = phase_remat(dev)
@@ -3100,6 +3172,15 @@ def main() -> int:
             launches=n, max_abs_err=t["max_abs_err"], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"]))
+    # C's backward at b16 640² (dkernel, dγ, dβ), launches in [train]'s
+    # main-path steps and its one-step comparisons; no TPU kernel: the
+    # Pallas stem's VJP differentiates the plain decomposition
+    for name, t in (("stem_grad", train_stem_t["grad"]),
+                    ("stem_grad_f32", train_stem_f32_t["grad"])):
+        kernels.append(dict(
+            name=name, route="cuda", source="dcfa_yolo_tpu_torch/csrc/stem_grad.cu",
+            replaces=None, launches=launches[name], **{k: t[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}))
     # kernel D, forward + backward, at phi x's stem BN, its times at the neck
     # layer beside them; launches in [train]'s main-path steps; no TPU
     # kernel: XLA fuses the BN

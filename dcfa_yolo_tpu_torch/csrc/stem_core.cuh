@@ -1,6 +1,7 @@
 // Shared core of the two stem kernels for Hopper (sm_90a): kernel A
 // (stem_eval.cu, the fused eval stem) and kernel C (stem_train.cu, the fused
-// train stem).  Both compute conv3x3 s1 (3 -> 16) over 8x16 pooled pixels a
+// train stem; its backward, stem_grad.cu, runs on the same walk, staging and
+// conv over a larger tile).  Both compute conv3x3 s1 (3 -> 16) over 8x16 pooled pixels a
 // tile, keep the 17x33 conv tile in shared memory and pool it 3x3 s2 pad 1;
 // only the pooled maps (and C's per-CTA sums) reach device memory.  The stem
 // split probe's four variants (stem_probe.cu) run on kernel A's staging,
@@ -254,10 +255,12 @@ __device__ __forceinline__ void mma_operands(const bf16* __restrict__ weight,
 // The tile's conv on the tensor cores.  `stage` holds the tile's bf16 input
 // in layout L; warp w takes m16 tiles w, w + 8, ...  epi(p, ch, v0, v1, v2,
 // v3) receives the f32 sums of conv position p at channels ch, ch + 1 (v0,
-// v1) and ch + 8, ch + 9 (v2, v3), ch = 2 * (lane % 4).
-template <class L, class Epi>
+// v1) and ch + 8, ch + 9 (v2, v3), ch = 2 * (lane % 4).  NP conv positions
+// (NPOS, a forward tile's; the backward's tile is larger).
+template <class L, int NP = NPOS, class Epi>
 __device__ __forceinline__ void conv_tile_mma(const bf16* stage, const MmaOperands& o,
                                               Epi&& epi) {
+  constexpr int NMT = (NP + 15) / 16;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
   const char* sb = reinterpret_cast<const char*>(stage);
   // the pair of K columns (i, i + 1) of the position at byte address r
@@ -265,10 +268,10 @@ __device__ __forceinline__ void conv_tile_mma(const bf16* stage, const MmaOperan
     return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(r + o.off[i])) |
            (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(r + o.off[i + 1])) << 16);
   };
-  for (int mt = warp; mt < MTILES; mt += WARPS) {
+  for (int mt = warp; mt < NMT; mt += WARPS) {
     const int p0 = 16 * mt + g, p1 = p0 + 8;
-    const char* r0 = sb + 2 * L::base(p0 < NPOS ? p0 : NPOS - 1);
-    const char* r1 = sb + 2 * L::base(p1 < NPOS ? p1 : NPOS - 1);
+    const char* r0 = sb + 2 * L::base(p0 < NP ? p0 : NP - 1);
+    const char* r1 = sb + 2 * L::base(p1 < NP ? p1 : NP - 1);
     float d0[4] = {0.f, 0.f, 0.f, 0.f}, d1[4] = {0.f, 0.f, 0.f, 0.f};
     uint32_t a[4] = {pair(r0, 0), pair(r1, 0), pair(r0, 2), pair(r1, 2)};
     mma_16816(d0, a, o.b[0][0][0], o.b[0][0][1]);
@@ -280,8 +283,8 @@ __device__ __forceinline__ void conv_tile_mma(const bf16* stage, const MmaOperan
     mma_16816(d0, a, o.b[1][0][0], o.b[1][0][1]);
     mma_16816(d1, a, o.b[1][1][0], o.b[1][1][1]);
     // accumulator layout: d[0], d[1] row g, d[2], d[3] row g + 8, cols 2t, 2t+1
-    if (p0 < NPOS) epi(p0, 2 * t, d0[0], d0[1], d1[0], d1[1]);
-    if (p1 < NPOS) epi(p1, 2 * t, d0[2], d0[3], d1[2], d1[3]);
+    if (p0 < NP) epi(p0, 2 * t, d0[0], d0[1], d1[0], d1[1]);
+    if (p1 < NP) epi(p1, 2 * t, d0[2], d0[3], d1[2], d1[3]);
   }
 }
 
@@ -293,10 +296,10 @@ __device__ __forceinline__ void conv_tile_mma(const bf16* stage, const MmaOperan
 // the compiler turns into uniform-register loads (one a pair of weights for
 // the whole warp), so the shared-memory pipe is left to the input taps, the
 // conv tile and the pools.  epi(p, g, a0, a1, a2, a3) receives channels 4g
-// .. 4g + 3.
-template <class L, class Wt, class Epi>
+// .. 4g + 3.  NP conv positions, as conv_tile_mma.
+template <class L, int NP = NPOS, class Wt, class Epi>
 __device__ __forceinline__ void conv_tile_fma(const float* stage, Wt&& wt, Epi&& epi) {
-  for (int p = threadIdx.x; p < NPOS; p += THREADS) {
+  for (int p = threadIdx.x; p < NP; p += THREADS) {
     const float* src = stage + L::base(p);
     float in[27];
 #pragma unroll
@@ -310,6 +313,31 @@ __device__ __forceinline__ void conv_tile_fma(const float* stage, Wt&& wt, Epi&&
         for (int j = 0; j < 4; ++j) a[j] = fmaf(in[k], wt(4 * g + j, k), a[j]);
       epi(p, g, a[0], a[1], a[2], a[3]);
     }
+  }
+}
+
+// ---- kernel C's staging (stem_train.cu, stem_grad.cu) -----------------------
+
+// NR rows of the NHWC image from input row y0, pixels x0 .. x0 + ROWE / 3 - 1
+// (x0 even), as element pairs (4 bytes in bf16, 8 in float32; x0 and W are
+// even, so every pair is aligned and lies wholly inside or outside the
+// image), into dst at r * ROWE + c * 3 + ci.  Pairs outside are zero-filled:
+// the conv's pad-1 halo.  Thread tid < GROUPS * PAIRS copies pair tid %
+// PAIRS of rows tid / PAIRS, + GROUPS, ...: its column, and so whether that
+// lies inside the image, is the same in every row.
+template <int ROWE, int NR, typename T>
+__device__ __forceinline__ void stage_nhwc(const T* __restrict__ img, T* dst, int y0, int x0,
+                                           int H, int W) {
+  static_assert(ROWE % 2 == 0, "whole pairs a row");
+  constexpr int PAIRS = ROWE / 2, GROUPS = THREADS / PAIRS;
+  if (threadIdx.x >= GROUPS * PAIRS) return;
+  const int e = 2 * (threadIdx.x % PAIRS), r0 = threadIdx.x / PAIRS;
+  const bool col_ok = x0 + e / 3 >= 0 && x0 + (e + 1) / 3 < W;
+  long long off = ((long long)(y0 + r0) * W + x0) * 3 + e;  // element of row r0
+  for (int r = r0; r < NR; r += GROUPS, off += (long long)GROUPS * W * 3) {
+    const int gy = y0 + r;
+    const bool ok = col_ok && gy >= 0 && gy < H;
+    cp_async<static_cast<int>(2 * sizeof(T))>(dst + r * ROWE + e, ok ? img + off : img, ok);
   }
 }
 

@@ -86,29 +86,6 @@ struct TrainSmem {
   alignas(16) double red[WARPS * 2 * CO];
 };
 
-// The tile's input rows y0 - 1 .. y0 + IR - 2, pixels x0 - 1 .. x0 + IC - 2,
-// as element pairs (4 bytes in bf16, 8 in float32; the pixel x0 - 1 is even
-// and W is even, so every pair is aligned and lies wholly inside or outside
-// the image).  Pairs outside are zero-filled: the conv's pad-1 halo.  Thread
-// tid < 4 * PAIRS copies pair tid % PAIRS of rows tid / PAIRS, + 4, + 8, ...:
-// its column, and so whether that lies inside the image, is the same in
-// every row.
-template <typename T>
-__device__ __forceinline__ void stage_tile(const T* __restrict__ img, T* dst, int y0, int x0,
-                                           int H, int W) {
-  constexpr int PAIRS = ROWE / 2, GROUPS = THREADS / PAIRS;
-  if (threadIdx.x >= GROUPS * PAIRS) return;
-  const int e = 2 * (threadIdx.x % PAIRS), r0 = threadIdx.x / PAIRS;
-  const int xs = x0 - 1;
-  const bool col_ok = xs + e / 3 >= 0 && xs + (e + 1) / 3 < W;
-  long long off = ((long long)(y0 - 1 + r0) * W + xs) * 3 + e;  // element of row r0
-  for (int r = r0; r < IR; r += GROUPS, off += (long long)GROUPS * W * 3) {
-    const int gy = y0 - 1 + r;
-    const bool ok = col_ok && gy >= 0 && gy < H;
-    cp_async<static_cast<int>(2 * sizeof(T))>(dst + r * ROWE + e, ok ? img + off : img, ok);
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 3)
 stem_train_kernel(const T* __restrict__ x, const T* __restrict__ weight, T* __restrict__ pmax,
@@ -144,7 +121,8 @@ stem_train_kernel(const T* __restrict__ x, const T* __restrict__ weight, T* __re
   walk_tiles<Smem::kConvTiles>(
       B, tiles_x, tiles_y,
       [&](const Tile& t, int buf) {
-        stage_tile(x + t.b * img_elems, sm.stage[buf], 2 * t.pr0 - 1, 2 * t.pc0 - 1, H, W);
+        stage_nhwc<ROWE, IR>(x + t.b * img_elems, sm.stage[buf], 2 * t.pr0 - 2, 2 * t.pc0 - 2,
+                             H, W);
       },
       [&](const Tile& t, int sbuf, int cbuf) {
         T* conv = sm.conv[cbuf];

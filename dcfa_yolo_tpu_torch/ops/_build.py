@@ -11,8 +11,9 @@ package imports on machines without `nvcc`.
 Every wrapper checks its launch with `check`, which also counts it under a
 stable name (`launches`): `stem_eval` (kernel A), `nms_suppress` (kernel B,
 one a call of its two phases), `stem_train` (kernel C, both dtypes) with
-`stem_train_f32` (its float32 launches), `bn_train` (kernel D, six a
-train-mode BN call) and `stem_probe_<variant>` (the split probe).  A CUDA
+`stem_train_f32` (its float32 launches), `stem_grad` (C's backward, two a
+call, three where dx is asked for) with `stem_grad_f32`, `bn_train` (kernel
+D, six a train-mode BN call) and `stem_probe_<variant>` (the split probe).  A CUDA
 graph's capture calls the wrappers but launches nothing: `held_launches`
 takes what is counted inside it back out and hands it to the caller, which
 adds it again (`add_launches`) at each replay.
@@ -45,10 +46,11 @@ SOURCES = {
     "stem_eval.cu": [],
     "nms_suppress.cu": ["-fmad=false"],
     "stem_train.cu": [],
+    "stem_grad.cu": [],
     "stem_probe.cu": [],
     "bn_train.cu": [],
 }
-HEADERS = ("stem_core.cuh",)  # included by stem_eval.cu, stem_train.cu, stem_probe.cu
+HEADERS = ("stem_core.cuh",)  # included by stem_eval.cu, stem_train.cu, stem_grad.cu, stem_probe.cu
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_SECONDS: Optional[float] = None
@@ -121,6 +123,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     for fn in (lib.stem_train_bf16, lib.stem_train_f32):
         fn.argtypes = [p, p, p, p, p, i, i, i, i, p]
         fn.restype = i
+    lib.stem_grad_info.argtypes = [i, i, p]
+    lib.stem_grad_info.restype = i
+    lib.stem_grad.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.stem_grad.restype = i
+    lib.stem_grad_dx.argtypes = [i, p, p, p, i, i, i, i, p]
+    lib.stem_grad_dx.restype = i
     lib.stem_probe_bf16.argtypes = [i, p, p, p, p, i, i, i, i, p]
     lib.stem_probe_bf16.restype = i
     lib.stem_probe_info.argtypes = [i, p]
@@ -161,7 +169,8 @@ def load_library(build: bool = True) -> ctypes.CDLL:
 
 # the kernels on csrc/stem_core.cuh's persistent walk, whose grids are sized
 # from the card's resident CTAs
-STEM_KERNELS = ("stem_eval", "stem_train_bf16", "stem_train_f32", "stem_probe_conv",
+STEM_KERNELS = ("stem_eval", "stem_train_bf16", "stem_train_f32", "stem_grad1_bf16",
+                "stem_grad2_bf16", "stem_grad1_f32", "stem_grad2_f32", "stem_probe_conv",
                 "stem_probe_pool", "stem_probe_dblbuf", "stem_probe_pipe")
 # the stem split probe's entry codes (csrc/stem_probe.cu's stem_probe_bf16
 # and stem_probe_info)
@@ -185,6 +194,8 @@ def stem_kernel_info(name: str, device: torch.device) -> dict:
                 rc = lib.stem_eval_info(buf)
             elif name.startswith("stem_probe_"):
                 rc = lib.stem_probe_info(PROBE_CODES[name[len("stem_probe_"):]], buf)
+            elif name.startswith("stem_grad"):  # stem_grad<pass>_<dtype>
+                rc = lib.stem_grad_info(int(name.endswith("f32")), int(name[9]), buf)
             else:
                 rc = lib.stem_train_info(int(name == "stem_train_f32"), buf)
         check(rc, f"{name} info")

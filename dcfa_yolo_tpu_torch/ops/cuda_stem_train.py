@@ -18,9 +18,16 @@ its launches of both dtypes under `stem_train`, and those in float32 also
 under `stem_train_f32`.
 `stem_train_gemm` computes the kernel's arithmetic in plain PyTorch, in the
 kernel's GEMM form (`ops/stem_core.py`).
-`fused_train_stem` is the differentiable function; its backward
-differentiates the plain decomposition `reference_stem`, as the JAX VJP does
-(`pallas_stem_train.py:328-337`): the TPU kernel has no backward kernel.
+`fused_train_stem` is the differentiable function.  Its backward is
+`stem_grad`: on a CUDA tensor the hand-written backward
+(`csrc/stem_grad.cu`, two launches: the per-channel sums of the routed
+cotangent, then dĉ and the weight gradient; a third for dx where it is
+asked for), counted under `stem_grad` (and `stem_grad_f32`); on a CPU
+tensor its plain twin `stem_grad_plain`, the same two-pass arithmetic in
+plain PyTorch.  Both compute what autograd through the plain decomposition
+`reference_stem` gives from the forward's batch moments, which is what the
+JAX VJP differentiates (`pallas_stem_train.py:328-337`; the TPU kernel has
+no backward kernel).
 
 Across the ranks of a process group (data-parallel fused training, the
 JAX `_partitionable_stem_train` and `_stats_to_moments`,
@@ -28,14 +35,15 @@ JAX `_partitionable_stem_train` and `_stats_to_moments`,
 batch and the float64 totals of the sums are all-reduced, then rounded
 once to float32: the moments depend on the number of ranks only through
 that rounding.  The backward's reference averages its batch mean and mean²
-over the group (the pmean of `:269-271`).  Every rank must take the same
-path and make the same collective calls: an empty or unequal local batch
-raises on every rank.
+over the group (the pmean of `:269-271`), so the cotangents of the local
+mean and mean² are averaged over the group between the backward's passes.
+Every rank must take the same path and make the same collective calls: an
+empty or unequal local batch raises on every rank.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,9 +51,10 @@ import torch.nn.functional as F
 from dcfa_yolo_tpu_torch.device import kernels_supported
 from dcfa_yolo_tpu_torch.ops import _build, stem_core
 from dcfa_yolo_tpu_torch.ops.norm import batch_moments
-from dcfa_yolo_tpu_torch.parallel.mesh import reduce_in_place, world_size
+from dcfa_yolo_tpu_torch.parallel.mesh import all_reduce_mean, reduce_in_place, world_size
 
 STEM_CO = 16  # the kernel is specialised to phi='n''s 16 stem channels
+NO_ROUTE = 255  # the backward's routing: a window whose cotangent the ReLU drops
 _ENTRIES = {torch.bfloat16: "stem_train_bf16", torch.float32: "stem_train_f32"}
 # the float32 kernel reads its weights from one constant-memory buffer per
 # device, written on the launch's stream: a launch on another stream than
@@ -198,18 +207,24 @@ def stem_train(x: torch.Tensor, weight: torch.Tensor, group=None
 
 
 def reference_stem(x: torch.Tensor, kernel: torch.Tensor, gamma: torch.Tensor,
-                   beta: torch.Tensor, eps: float, group=None
+                   beta: torch.Tensor, eps: float, group=None, moments=None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The decomposition the kernel replaces (`_reference_stem`,
     `pallas_stem_train.py:257-275`): conv with compute-dtype operands,
     float32 batch statistics (mean and mean² averaged over `group`, the
     pmean of `:269-271`), normalize, ReLU, max pool.  x (B, H, W, 3) in the
     compute dtype, kernel (16, 3, 3, 3) float32 → (y (B, H/2, W/2, 16)
-    NHWC, mean, var)."""
+    NHWC, mean, var).  `moments`: the forward's (mean, mean²), whose values
+    stand in for the batch's while the gradient flows through the batch's,
+    which is what the backward (`stem_grad`) differentiates."""
     ct = x.dtype
     c = F.conv2d(x.permute(0, 3, 1, 2), kernel.to(ct), padding=1)
     cf = c.float()
     mean, var = batch_moments(cf, group)
+    if moments is not None:
+        fmean, fvar = moments[0], torch.clamp_min(moments[1] - moments[0] * moments[0], 0.0)
+        mean = mean + (fmean - mean).detach()
+        var = var + (fvar - var).detach()
     shape = (1, -1, 1, 1)
     y = ((cf - mean.view(shape)) * torch.rsqrt(var + eps).view(shape)
          * gamma.view(shape) + beta.view(shape))
@@ -217,12 +232,191 @@ def reference_stem(x: torch.Tensor, kernel: torch.Tensor, gamma: torch.Tensor,
     return F.max_pool2d(r, 3, 2, 1).permute(0, 2, 3, 1), mean, var
 
 
+def grad_constants(sums: torch.Tensor, mean: torch.Tensor, mean2: torch.Tensor,
+                   rstd: torch.Tensor, gamma: torch.Tensor, gmean: torch.Tensor,
+                   gvar: torch.Tensor, n: int, group=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Between the backward's passes: the (16, 2) float64 totals [Σdy,
+    Σdy·(ĉ − mean)] of this rank's `n` conv pixels → (dγ, dβ, (3, 16)
+    [A, B, C] of dĉ = A·dy + B + C·ĉ), in float32 as autograd forms them
+    through `reference_stem`: rsqrt's −½·rstd³, the variance clamp's mask,
+    the cotangents `gmean` and `gvar`, and the cotangents of the local mean
+    and mean² averaged over `group` (the VJP of its pmean)."""
+    s1, s2 = sums.float().unbind(1)
+    dvar = -0.5 * (gamma * s2) * rstd.pow(3) + gvar
+    dvar = dvar * (mean2 - mean * mean >= 0)
+    dmean = -(gamma * rstd) * s1 + gmean - 2.0 * mean * dvar
+    dm = torch.stack([dmean, dvar])
+    if group is not None:
+        dm = all_reduce_mean(dm, group)
+    abc = torch.stack([gamma * rstd, dm[0] / n, 2.0 * dm[1] / n])
+    return rstd * s2, s1, abc
+
+
+def _route_plain(c: torch.Tensor, mean, rstd, gamma, beta, ct) -> Tuple[torch.Tensor,
+                                                                         torch.Tensor]:
+    """r = relu(round(((ĉ − mean)·rstd)·γ + β)) of the float32 NCHW ĉ, and
+    the flat index (y·W + x) of each pooled output's first maximum."""
+    v = (lambda t: t.view(1, -1, 1, 1))
+    r = torch.relu((((c - v(mean)) * v(rstd)) * v(gamma) + v(beta)).to(ct))
+    return r, F.max_pool2d(r, 3, 2, 1, return_indices=True)[1]
+
+
+def route_plain(x: torch.Tensor, kernel: torch.Tensor, gamma: torch.Tensor,
+                beta: torch.Tensor, mean: torch.Tensor, mean2: torch.Tensor,
+                eps: float) -> torch.Tensor:
+    """The twin's routing in the kernel's `route` encoding: (B, H/2, W/2,
+    16) uint8, each pooled output's first argmax of r as its offset dy·3 +
+    dx in the window, `NO_ROUTE` where the window's maximum is 0 (what
+    the tests and `chip_smoke.py` hold the kernel's routing to)."""
+    ct = x.dtype
+    w = x.shape[2]
+    c = F.conv2d(x.permute(0, 3, 1, 2).float(), kernel.to(ct).float(), padding=1)
+    rstd = torch.rsqrt(torch.clamp_min(mean2 - mean * mean, 0.0) + eps)
+    r, idx = _route_plain(c.to(ct).float(), mean, rstd, gamma, beta, ct)
+    pr = torch.arange(idx.shape[2], device=x.device).view(1, 1, -1, 1)
+    pc = torch.arange(idx.shape[3], device=x.device).view(1, 1, 1, -1)
+    off = (idx // w - 2 * pr + 1) * 3 + idx % w - 2 * pc + 1
+    off = torch.where(F.max_pool2d(r, 3, 2, 1) > 0, off, NO_ROUTE)
+    return off.permute(0, 2, 3, 1).to(torch.uint8).contiguous()
+
+
+def stem_grad_plain(x: torch.Tensor, kernel: torch.Tensor, gamma: torch.Tensor,
+                    beta: torch.Tensor, mean: torch.Tensor, mean2: torch.Tensor,
+                    gy: torch.Tensor, gmean: torch.Tensor, gvar: torch.Tensor, eps: float,
+                    group=None, needs: Sequence[bool] = (True,) * 4,
+                    route: Optional[torch.Tensor] = None):
+    """The backward's two passes in plain PyTorch (`csrc/stem_grad.cu`'s
+    contract), on any device; the CPU's route, and what the kernel is held to
+    on the card.  x (B, H, W, 3) in the compute dtype, kernel (16, 3, 3, 3)
+    float32, the forward's `mean` and `mean²`, gy (B, H/2, W/2, 16) →
+    (dx, dkernel, dγ, dβ), None where `needs` says no.  Routing: each
+    pooled cotangent to its window's first maximum of r, summed in float32
+    and rounded to the compute dtype, zero where r is 0; or by `route`, the
+    kernel's routing (`stem_grad`), which the tests give to hold the rest of
+    the arithmetic apart from near-ties that two conv summation orders
+    resolve apart.  On the card it needs TF32 off."""
+    ct = x.dtype
+    b, h, w, _ = x.shape
+    wt = kernel.to(ct).float()
+    xc = x.permute(0, 3, 1, 2).float()
+    c = F.conv2d(xc, wt, padding=1).to(ct).float()
+    rstd = torch.rsqrt(torch.clamp_min(mean2 - mean * mean, 0.0) + eps)
+    r, idx = _route_plain(c, mean, rstd, gamma, beta, ct)
+    g = gy.permute(0, 3, 1, 2).float()
+    if route is not None:
+        off = route.permute(0, 3, 1, 2).long()
+        pr = torch.arange(h // 2, device=x.device).view(1, 1, -1, 1)
+        pc = torch.arange(w // 2, device=x.device).view(1, 1, 1, -1)
+        kept = off != NO_ROUTE
+        idx = torch.where(kept, (2 * pr - 1 + off // 3) * w + 2 * pc - 1 + off % 3, 0)
+        g = g * kept
+    g = g.reshape(b * 16, -1)
+    dy = torch.zeros((b * 16, h * w), dtype=torch.float32, device=x.device)
+    dy.scatter_add_(1, idx.reshape(b * 16, -1), g)
+    dy = (dy.view(b, 16, h, w).to(ct).float() * (r > 0))
+    d = (c - mean.view(1, -1, 1, 1)).double()
+    sums = torch.stack([dy.double().sum((0, 2, 3)), (dy.double() * d).sum((0, 2, 3))], 1)
+    dgamma, dbeta, (a_, b_, c_) = grad_constants(sums, mean, mean2, rstd, gamma, gmean, gvar,
+                                                 b * h * w, group)
+    v = (lambda t: t.view(1, -1, 1, 1))
+    dc = (v(a_) * dy + v(b_) + v(c_) * c).to(ct).float()
+    dx = dk = None
+    if needs[1]:
+        cols = F.unfold(xc, 3, padding=1)  # (B, 27, H·W), k = ci·9 + dy·3 + dx
+        dk = torch.einsum("bop,bkp->ok", dc.reshape(b, 16, -1), cols).to(ct).float()
+        dk = dk.reshape(kernel.shape)
+    if needs[0]:
+        dx = F.conv_transpose2d(dc, wt, padding=1).to(ct).permute(0, 2, 3, 1)
+    return (dx, dk, dgamma if needs[2] else None, dbeta if needs[3] else None)
+
+
+def stem_grad(x: torch.Tensor, kernel: torch.Tensor, gamma: torch.Tensor,
+              beta: torch.Tensor, mean: torch.Tensor, mean2: torch.Tensor,
+              gy: torch.Tensor, gmean: torch.Tensor, gvar: torch.Tensor, eps: float,
+              group=None, needs: Sequence[bool] = (True,) * 4,
+              route: Optional[torch.Tensor] = None):
+    """The train stem's backward, as `stem_grad_plain` returns it.  A CUDA
+    tensor launches the kernel (`csrc/stem_grad.cu`): pass 1 writes per-CTA
+    float64 partials of [Σdy, Σdy·(ĉ − mean)], added here in float64;
+    `grad_constants` (with `group`'s all-reduce) gives dγ, dβ and dĉ's
+    constants; pass 2 writes per-CTA float64 partials of dW, added here and
+    rounded once to the compute dtype, and dĉ for a third launch that forms
+    dx, where `needs[0]`.  Pass 2 runs only where dx or dkernel is needed,
+    and routes by pass 1's `route`: each pooled output's first argmax in
+    its window (dy·3 + dx) or `NO_ROUTE`, a (B, H/2, W/2, 16) uint8 tensor
+    (given by the tests, else made here).  No host synchronisation and
+    fixed scratch sizes for a shape, so it can be captured; sums in a fixed
+    order, so two calls give equal bits.  A CPU tensor takes
+    `stem_grad_plain`."""
+    if x.device.type == "cpu":
+        return stem_grad_plain(x, kernel, gamma, beta, mean, mean2, gy, gmean, gvar, eps,
+                               group, needs)
+    b, h, w, _ = x.shape
+    ct = x.dtype
+    if x.device.type != "cuda" or ct not in _ENTRIES or h % 2 or w % 2 or b == 0:
+        raise ValueError(f"the train stem's backward kernel takes a non-empty bf16 or "
+                         f"float32 CUDA x with even H and W, got {tuple(x.shape)} "
+                         f"{ct} on {x.device}")
+    if tuple(gy.shape) != (b, h // 2, w // 2, STEM_CO) or gy.dtype != ct:
+        raise ValueError(f"gy must be ({b}, {h // 2}, {w // 2}, {STEM_CO}) {ct}, got "
+                         f"{tuple(gy.shape)} {gy.dtype}")
+    x = x.contiguous()
+    gy = gy.contiguous()
+    if gy.data_ptr() % 16:
+        gy = gy.clone()
+    wt = kernel.detach().to(ct).contiguous()
+    f32 = ct == torch.float32
+    counted = ("stem_grad",) + (("stem_grad_f32",) if f32 else ())
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(x.device)
+    if f32 and not torch.cuda.is_current_stream_capturing():
+        order_f32(stream)  # a graph's launch is ordered where it is replayed
+    dtag = "f32" if f32 else "bf16"
+    rstd = torch.rsqrt(torch.clamp_min(mean2 - mean * mean, 0.0) + eps)
+    prm = torch.stack([mean, rstd, gamma.detach(), beta.detach()])
+    n1 = stem_core.num_ctas(b, h, w, _build.stem_kernel_info(
+        f"stem_grad1_{dtag}", x.device)["resident_ctas"])
+    part1 = torch.empty((n1, STEM_CO, 2), dtype=torch.float64, device=x.device)
+    if route is None:
+        route = torch.empty(gy.shape, dtype=torch.uint8, device=x.device)
+    elif (tuple(route.shape) != tuple(gy.shape) or route.dtype != torch.uint8
+          or route.device != x.device or not route.is_contiguous()):
+        raise ValueError(f"route must be a contiguous uint8 {tuple(gy.shape)} tensor on "
+                         f"{x.device}")
+    _build.check(lib.stem_grad(int(f32), 1, x.data_ptr(), wt.data_ptr(), gy.data_ptr(),
+                               prm.data_ptr(), part1.data_ptr(), None, route.data_ptr(),
+                               b, h, w, n1, stream.cuda_stream), "stem_grad sums", *counted)
+    dgamma, dbeta, abc = grad_constants(part1.sum(0), mean, mean2, rstd, gamma.detach(),
+                                        gmean, gvar, b * h * w, group)
+    dx = dk = None
+    if needs[0] or needs[1]:
+        prm = torch.cat([prm, abc])
+        n2 = stem_core.num_ctas(b, h, w, _build.stem_kernel_info(
+            f"stem_grad2_{dtag}", x.device)["resident_ctas"])
+        part2 = torch.empty((n2, STEM_CO * 27), dtype=torch.float64, device=x.device)
+        dc = torch.empty((b, h, w, STEM_CO), dtype=ct, device=x.device) if needs[0] else None
+        _build.check(lib.stem_grad(int(f32), 2, x.data_ptr(), wt.data_ptr(), gy.data_ptr(),
+                                   prm.data_ptr(), part2.data_ptr(),
+                                   None if dc is None else dc.data_ptr(), route.data_ptr(),
+                                   b, h, w, n2, stream.cuda_stream), "stem_grad weights",
+                     *counted)
+        dk = part2.sum(0).to(ct).float().view(kernel.shape) if needs[1] else None
+        if needs[0]:
+            dx = torch.empty_like(x)
+            blocks = 8 * torch.cuda.get_device_properties(x.device).multi_processor_count
+            _build.check(lib.stem_grad_dx(int(f32), dc.data_ptr(), wt.data_ptr(),
+                                          dx.data_ptr(), b, h, w, blocks, stream.cuda_stream),
+                         "stem_grad dx", *counted)
+    return (dx, dk, dgamma if needs[2] else None, dbeta if needs[3] else None)
+
+
 class _FusedTrainStem(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, kernel, gamma, beta, eps, group):
         b, h, w, _ = x.shape
-        pmax, pmin, sums = stem_train(x.contiguous(),
-                                      kernel.to(x.dtype).contiguous(), group)
+        x = x.contiguous()
+        pmax, pmin, sums = stem_train(x, kernel.to(x.dtype).contiguous(), group)
         n = b * h * w * world_size(group)
         mean = sums[:, 0] / n
         mean2 = sums[:, 1] / n
@@ -231,22 +425,14 @@ class _FusedTrainStem(torch.autograd.Function):
         shift = beta - mean * scale
         pooled = torch.where(scale >= 0, pmax, pmin)
         y = torch.relu((pooled.float() * scale + shift).to(x.dtype))
-        ctx.save_for_backward(x, kernel, gamma, beta)
+        ctx.save_for_backward(x, kernel, gamma, beta, mean, mean2)
         ctx.eps, ctx.group = eps, group
         return y, mean, var
 
     @staticmethod
     def backward(ctx, gy, gmean, gvar):
-        x, kernel, gamma, beta = ctx.saved_tensors
-        inputs = [t.detach().requires_grad_(need) for t, need in
-                  zip((x, kernel, gamma, beta), ctx.needs_input_grad[:4])]
-        with torch.enable_grad():
-            outs = reference_stem(*inputs, ctx.eps, ctx.group)
-            wanted = [t for t, need in zip(inputs, ctx.needs_input_grad[:4]) if need]
-            grads = iter(torch.autograd.grad(outs, wanted, (gy, gmean, gvar),
-                                             allow_unused=True))
-        return (*[next(grads) if need else None
-                  for need in ctx.needs_input_grad[:4]], None, None)
+        return (*stem_grad(*ctx.saved_tensors, gy, gmean, gvar, ctx.eps, ctx.group,
+                           ctx.needs_input_grad[:4]), None, None)
 
 
 def fused_train_stem(x: torch.Tensor, kernel: torch.Tensor, gamma: torch.Tensor,

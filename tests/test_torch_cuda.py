@@ -59,10 +59,12 @@ def test_stem_kernel_matches_plain(cuda, shape):
 
 
 @pytest.mark.parametrize("name", ["stem_eval", "stem_train_bf16", "stem_train_f32",
-                                  "stem_probe_conv", "stem_probe_pool", "stem_probe_dblbuf",
-                                  "stem_probe_pipe"])
+                                  "stem_grad1_bf16", "stem_grad2_bf16", "stem_grad1_f32",
+                                  "stem_grad2_f32", "stem_probe_conv", "stem_probe_pool",
+                                  "stem_probe_dblbuf", "stem_probe_pipe"])
 def test_stem_kernels_fit_two_ctas_an_sm(cuda, name):
-    """The kernels on the stem core (A, C, the probe's four variants): at
+    """The kernels on the stem core (A, C and C's backward's two passes,
+    the probe's four variants): at
     most 128 registers a thread and no stack, so that at least two CTAs
     (of 256 threads; pipe's of 384) are resident on every SM."""
     from dcfa_yolo_tpu_torch.ops import _build
