@@ -1,12 +1,15 @@
 """One run of one cell: the device check, the cell's driver, the per-layer
-readers, the JAX check and the result line.
+readers, the JAX check, the check of the cards the run used, and the
+result line.
 
 The driver (`benchmark/drivers/<driver>.py`) sets the system up, measures
 for `--seconds`, optionally traces, then judges what the timed path
-produced against the plain reference; it returns an `Outcome`.  This
-module turns that into the last line of standard output, one JSON object,
-and prints each compared number beside its limit as the last lines of
-standard error and under the result's last key, `checks`.
+produced against the plain reference; it returns an `Outcome`, which
+names the card of every process that stepped the timed work.  This module
+turns that into the last line of standard output, one JSON object, whose
+`device` block counts those cards, and prints each compared number beside
+its limit as the last lines of standard error and under the result's last
+key, `checks`.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ class Outcome:
     failed: int
     checks: Dict[str, Tuple[float, float]]
     memory_peak_bytes: int
+    cards: List[Dict]  # `card_of` each process that ran the timed work
     layer: Dict = field(default_factory=dict)  # what the per-layer readers take
     trace: Optional[object] = None             # benchlib.trace.Trace
 
@@ -56,6 +60,36 @@ def sync(dev) -> None:
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def card_of(dev) -> Dict:
+    """The card this process ran its timed work on, as its own `torch.cuda`
+    sees it: index, name and identity (the CPU has neither index nor
+    identity)."""
+    import torch
+
+    if dev.type != "cuda":
+        return {"index": None, "name": "cpu", "uuid": None}
+    i = torch.cuda.current_device() if dev.index is None else dev.index
+    return {"index": i, "name": torch.cuda.get_device_name(i),
+            "uuid": str(torch.cuda.get_device_properties(i).uuid)}
+
+
+def cards_used(cards: Sequence[Dict], chips: Optional[int]) -> Tuple[int, str]:
+    """The number of distinct cards (by identity) among `cards` and their
+    common name.  With `chips` (a run on cards), raises ValueError where
+    fewer than `chips` distinct cards ran the timed work, or cards of
+    different kinds."""
+    count = len({c["uuid"] for c in cards})
+    kinds = sorted({c["name"] for c in cards})
+    if chips is not None:
+        if count < chips:
+            raise ValueError(f"the cell asks for {chips} card(s); its timed work ran on "
+                             f"{count} distinct card(s): {list(cards)}")
+        if len(kinds) != 1:
+            raise ValueError(f"the cell's timed work ran on cards of different kinds: "
+                             f"{list(cards)}")
+    return count, kinds[0] if kinds else ""
 
 
 def forbidden_modules() -> List[str]:
@@ -79,8 +113,9 @@ def main(argv: Optional[Sequence[str]] = None, *, t0: Optional[float] = None,
          device: Optional[str] = None, root: Optional[Path] = None,
          out=None) -> int:
     """Run a cell and print its result.  `device` and `root` are for the
-    CPU tests: `device="cpu"` skips the look for a card, `root` is a
-    checkout with its own BENCHMARK.json.  Returns the exit code."""
+    CPU tests: a given `device` skips the look for a card (`"cpu"`, or
+    `"cuda"` under a driver that makes up its cards), `root` is a checkout
+    with its own BENCHMARK.json.  Returns the exit code."""
     t0 = time.perf_counter() if t0 is None else t0
     out = out or sys.stdout
     args = parse(argv)
@@ -117,6 +152,12 @@ def main(argv: Optional[Sequence[str]] = None, *, t0: Optional[float] = None,
     if bad:
         print(f"JAX or the JAX package is loaded in this process: {bad}", file=sys.stderr)
         return 3
+    try:
+        count, kind = cards_used(outcome.cards, cell.chips if dev.type == "cuda" else None)
+    except ValueError as e:
+        print(str(e), file=sys.stderr)
+        return 2
+    print(f"cards: {outcome.cards}", file=sys.stderr)
     result = {
         "correct": outcome.correct,
         "attempted": int(outcome.attempted),
@@ -124,8 +165,8 @@ def main(argv: Optional[Sequence[str]] = None, *, t0: Optional[float] = None,
         "metrics": metrics,
         "device": {
             "platform": "gpu" if dev.type == "cuda" else dev.type,
-            "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
-            "count": 1,
+            "kind": kind,
+            "count": count,
             "memory_peak_bytes": int(outcome.memory_peak_bytes),
         },
     }

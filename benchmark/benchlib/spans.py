@@ -245,12 +245,12 @@ def view(ctx) -> Optional[SpanView]:
 
 
 # -- the readers (`benchmark/metrics/<name>.py`) ---------------------------
-def _host(name: str, self_time: bool):
+def _host(name: str):
     def read(ctx) -> Optional[float]:
         v = view(ctx)
         if v is None:
             return None
-        return v.per_request_ms(name, v.self_us if self_time else v.host_us)
+        return v.per_request_ms(name, v.host_us)
     return read
 
 
@@ -273,8 +273,4 @@ def replay_device_ms(ctx) -> Optional[float]:
 
 copy_in_idle_ms = _idle("pipeline.copy_in")
 copy_out_idle_ms = _idle("predictor.copy_out")
-forward_host_ms = _host("trainer.forward", True)
-loss_host_ms = _host("trainer.loss", True)
-backward_host_ms = _host("trainer.backward", True)
-update_host_ms = _host("trainer.update", True)
-augment_host_ms = _host("device_aug.batch", False)
+augment_host_ms = _host("device_aug.batch")

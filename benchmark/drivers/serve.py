@@ -28,7 +28,7 @@ import torch
 
 from benchlib import judge_serve, weights, yardstick
 from benchlib import trace as tracing
-from benchlib.harness import Context, Outcome, sync
+from benchlib.harness import Context, Outcome, card_of, sync
 from benchlib.spec import sizes_of
 from reference.model import ReferenceYolo, Sizes, state_names
 from reference.precision import ieee
@@ -166,7 +166,7 @@ def run(ctx: Context) -> Outcome:
     ctx.say(f"[serve] reference over {len(sample)} sampled calls "
             f"({len(readings)} images) in {time.perf_counter() - t_ref:.3f} s")
     checks = {k: (float(worst[k]), float(lim[k])) for k in ("det_gap", "nms_miss", "nms_overlap")}
-    return Outcome(e2e, n_calls, failed, checks, peak, layer, trace)
+    return Outcome(e2e, n_calls, failed, checks, peak, [card_of(dev)], layer, trace)
 
 
 def n_anchors(hw) -> int:

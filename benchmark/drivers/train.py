@@ -39,7 +39,7 @@ import torch
 
 from benchlib import judge_train, synth, weights, yardstick
 from benchlib import trace as tracing
-from benchlib.harness import Context, Outcome, sync
+from benchlib.harness import Context, Outcome, card_of, sync
 from benchlib.spec import sizes_of
 from reference import augment as ref_aug
 from reference.model import ReferenceYolo, Sizes, fold_spec, state_names, unfold
@@ -284,7 +284,7 @@ def run(ctx: Context) -> Outcome:
              "input_hw": sizes.input_hw,
              "flops_per_item": yardstick.forward_flops(sizes, batch,
                                                        train=True) / batch}
-    return Outcome(e2e, steps, 0, checks, peak, layer, trace)
+    return Outcome(e2e, steps, 0, checks, peak, [card_of(dev)], layer, trace)
 
 
 def step_times(marks) -> str:

@@ -49,7 +49,7 @@ import torch.distributed as dist
 
 from benchlib import judge_train, ranks, synth, yardstick
 from benchlib import trace as tracing
-from benchlib.harness import Outcome, sync
+from benchlib.harness import Outcome, card_of, sync
 from benchlib.ranks import Ranks
 from benchlib.spec import sizes_of
 from drivers.train import (MAX_BOXES, PREFIXES, PortRun, Reference, epoch0_lr, host_copy,
@@ -193,6 +193,7 @@ def rank_run(rk: Ranks, job, say=lambda msg: None, t0=None):
     window_s = time.perf_counter() - t_start
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     peaks = rk.gather_object(peak)
+    cards = rk.gather_object(card_of(dev))
     cpu = rk.gather_object((time.process_time(), os.sched_getaffinity(0)))
     if lead:
         say(f"[train_dp] {steps} steps of {batch} on {rk.world} ranks in {window_s:.3f} s "
@@ -236,8 +237,8 @@ def rank_run(rk: Ranks, job, say=lambda msg: None, t0=None):
     if not lead:
         return None
     out.update(work=work, lines=lines, setup=setup, judged=judged, steps=steps,
-               window_s=window_s, peak=max(peaks), setup_s=setup_s, trace=trace,
-               nccl_us=nccl_us)
+               window_s=window_s, peak=max(peaks), cards=cards, setup_s=setup_s,
+               trace=trace, nccl_us=nccl_us)
     return out
 
 
@@ -294,7 +295,8 @@ def run(ctx) -> Outcome:
     layer = {"rate_items_per_s": e2e["train_images_per_s"], "batch": batch,
              "input_hw": sizes.input_hw, "world": n_ranks, "nccl_us": got["nccl_us"],
              "flops_per_item": yardstick.forward_flops(sizes, batch, train=True) / batch}
-    return Outcome(e2e, got["steps"], 0, checks, got["peak"], layer, got["trace"])
+    return Outcome(e2e, got["steps"], 0, checks, got["peak"], got["cards"], layer,
+                   got["trace"])
 
 
 if __name__ == "__main__":

@@ -3,10 +3,11 @@
 gloo ranks of b2 each, the program in float32.  `BENCHMARK.json` has no
 such cell yet (PERF.md §7: its rate spreads too far between processes), so
 the tiny copy adds it under the harness's `<traffic>.<config>` name, with
-the limits of `train_b16.dcfa-n` and `replica_gap` 0.  A sound run comes out correct and
-its ranks end equal; each training fault planted in rank 0's process, and
-the precision control in the program's place, come out not correct; a
-traced run reports none but the cell's metrics.  The ranks outlive a run
+the limits of `train_b16.dcfa-n` and `replica_gap` 0.  A sound run comes
+out correct, its ranks end equal and each reports its device to the
+harness; each training fault planted in rank 0's process, and the
+precision control in the program's place, come out not correct; a traced
+run reports none but the cell's metrics.  The ranks outlive a run
 (`benchlib/ranks.py`), so the runs share one world."""
 
 from __future__ import annotations
@@ -65,8 +66,15 @@ def _last_line(root, trace=0):
 
 
 @pytest.mark.parametrize("trace", [0, 1])
-def test_a_sound_float32_run_is_correct(root, trace):
+def test_a_sound_float32_run_is_correct(root, trace, monkeypatch):
+    seen = []
+    cards_used = harness.cards_used
+    monkeypatch.setattr(harness, "cards_used",
+                        lambda cards, chips: seen.append(list(cards)) or cards_used(cards, chips))
     res = _last_line(root, trace)
+    # each of the 2 ranks reported the device it stepped on
+    assert seen == [[harness.card_of(torch.device("cpu"))] * 2]
+    assert res["device"]["count"] == 1
     assert res["correct"] is True
     assert res["checks"]["replica_gap"] == {"value": 0.0, "limit": 0.0}
     cell = spec.load_cell(CELL, root)

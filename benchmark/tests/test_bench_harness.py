@@ -1,12 +1,14 @@
 """The harness on the CPU at a tiny size: cells, traffic mixes and
 per-layer metrics found by name (a new one of each added as files, no
-existing file edited), seeded inputs, and the result line's keys."""
+existing file edited), seeded inputs, the result line's keys, and its
+`device` block counted from the cards the run's processes report."""
 
 from __future__ import annotations
 
 import io
 import json
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -111,6 +113,7 @@ def test_the_last_line(root, cell, trace):
     assert keys[-1] == "checks"
     assert isinstance(res["correct"], bool) and res["attempted"] > 0
     assert {"platform", "kind", "count", "memory_peak_bytes"} <= set(res["device"])
+    assert (res["device"]["count"], res["device"]["kind"]) == (1, "cpu")
     bench = spec.load_cell(cell, root)
     want = bench.per_layer if trace else bench.end_to_end
     names = {m["name"] for m in want}
@@ -122,3 +125,44 @@ def test_the_last_line(root, cell, trace):
         assert set(res["breakdown"]) == {"device_ops", "idle_gaps"}
     for c in res["checks"].values():
         assert set(c) == {"value", "limit"}
+
+
+H100 = "NVIDIA H100 80GB HBM3"
+
+
+def _cards(uuids, names=None):
+    """What the processes of a run on cards report (`harness.card_of`)."""
+    return [{"index": i, "name": n, "uuid": u}
+            for i, (u, n) in enumerate(zip(uuids, names or [H100] * len(uuids)))]
+
+
+@pytest.mark.parametrize("cards,count", [
+    (_cards(["GPU-a", "GPU-b", "GPU-c", "GPU-d"]), 4),
+    (_cards(["GPU-a", "GPU-a", "GPU-b", "GPU-c"]), None),  # two ranks on one card
+    (_cards(["GPU-a", "GPU-b", "GPU-c", "GPU-d"], [H100] * 3 + ["NVIDIA A100-SXM4-80GB"]),
+     None)])
+def test_the_device_block_counts_the_cards_that_ran(tmp_path, monkeypatch, cards, count):
+    """A four-card cell's line counts the distinct cards its processes ran
+    on; fewer than the cell asks for, or cards of two kinds, give no line
+    and a non-zero exit.  The driver is a stand-in that reports `cards`."""
+    root = tiny_root(tmp_path)
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    for w in bench["workloads"]:
+        if w["name"] == "serve_b1.dcfa-n":
+            w["chips"] = 4
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    def run(ctx):
+        return harness.Outcome({"latency_p95_ms": 5.0, "setup_s": 10.0}, 1, 0, {}, 2**30, cards)
+
+    monkeypatch.setattr(spec, "driver", lambda traffic, root=None: SimpleNamespace(run=run))
+    out = io.StringIO()
+    rc = harness.main(["--workload", "serve_b1.dcfa-n", "--seed", "3000000041", "--seconds",
+                       "1", "--trace", "0"], device="cuda", root=root, out=out)
+    if count is None:
+        assert rc != 0 and out.getvalue() == ""
+    else:
+        assert rc == 0
+        res = json.loads(out.getvalue().strip().splitlines()[-1])
+        assert res["device"] == {"platform": "gpu", "kind": H100, "count": count,
+                                 "memory_peak_bytes": 2**30}
